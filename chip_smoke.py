@@ -31,7 +31,11 @@ script exits 1 before the first phase):
                  1, 4, 5, 31-33, 63-65, 127-129 and 257 on both sides, LSW
                  ties within a lane's rows and across a band seam, empty
                  sides, padding lanes; exact equality of scores, start
-                 cells and every defined direction code
+                 cells and every defined direction code; then the banded
+                 fill at band 14,529 (K8 = 29,064: the lanes' slots in a
+                 global scratch) on two long pairs with runs of 14,528
+                 indels (`utils/synthetic.py` `wide_band_bucket`), dirs on
+                 and off, each call's time printed
   4. walk     -- from those CUDA fills (LNW, LSW and ANW at S=32 and 16,
                  BSW at bands 16, 3, 1, 20 and 32), the walk and compaction
                  kernels against their plain versions on the same device
@@ -41,8 +45,10 @@ script exits 1 before the first phase):
                  walk also on runs of up to 128 indels to the band's edge
                  slots (`band_run_pairs`) at those bands and at 64 (four
                  words a lane) and 129 (a 128-slot window that a run of
-                 128 leaves): packed word for word, nev, the kept slots,
-                 flat, max_nev, total; then
+                 128 leaves), and at band 14,529 on the wide-band bucket,
+                 whose runs take the window to both edges of the frame:
+                 packed word for word, nev, the kept slots, flat, max_nev,
+                 total; then
                  stream mode forced with ev_max=2 for each aligner,
                  replayed blocks equal to the oracle
   5. goldens  -- `tpu-align-torch -device cuda` reproduces goldens/lnw,
@@ -77,7 +83,11 @@ script exits 1 before the first phase):
                  of a 16,384 x 4,096 pair (2 x 8,192 x 4,096), of the 64 pairs
                  (128 x 8,192 x 16,384) and of the long pair (2 x 65,536 x
                  16,384) of phase 8; the split reduction against its plain
-                 version; exact everywhere
+                 version, also on the shapes its grid splits differently
+                 (`utils/synthetic.py` `SPLIT_REDUCE_SHAPES`: one
+                 subproblem, K no multiple of 32, a part-full last chunk,
+                 maxima tied across chunks, widths past the rows); exact
+                 everywhere
   8. hirsch   -- Hirschberg on the card byte-identical to the same call on
                  CPU (the plain versions) for 8 pairs of 1-2 kbp, LNW, LSW
                  and ANW, and with the stagger last rows for LNW and ANW;
@@ -87,7 +97,10 @@ script exits 1 before the first phase):
                  the row-sweep kernel's whole-pair score, and the lines
                  give back the sequences.  Wall, GCUPS-effective, phases
                  (LSW's end points, two row-sweep fills, on a line of
-                 their own)
+                 their own).  Then the LNW 64 x 16,384^2 run once more,
+                 the split reduction's arguments captured at each of its
+                 7 levels and each level's output held against the plain
+                 version
   9. timing   -- kernels beside their plain versions, in turns (plain,
                  kernel, kernel, plain), CUDA events: the LNW fill on one
                  256-pair and one 2048-pair bucket at 250 bp; the LSW, ANW
@@ -103,9 +116,13 @@ script exits 1 before the first phase):
                  split-level shape, and the row sweep's (the band
                  wavefront's) device time by torch.profiler at the three
                  top split levels of phase 7; the banded fill's device
-                 time by torch.profiler, dirs on and off; the split
-                 reduction at the 64-pair top level (64 subproblems,
-                 16,384 columns)
+                 time by torch.profiler, dirs on and off, and at band
+                 14,529; the split reduction at the 64-pair top level (64
+                 subproblems, 16,384 columns), its device time by
+                 torch.profiler there and at each level captured in phase
+                 8; each DPX function's device time, its calls rotating
+                 through 16 argument sets past the card's L2, and the DPX
+                 wrapper's host cost a call
   10. profile -- the BSW e2e run of phase 6 once more under
                  torch.profiler (with --profile, each device-traceback
                  run and the -kernel rowscan run): device time by kernel,
@@ -143,6 +160,9 @@ BANDS = (16, 3, 1, 20, 32)
 # the banded walk's widest layouts: four words a lane (K8 = 128) and, past
 # it, a 128-slot window that moves with the cursor (K8 = 264)
 WIDE_WALK_BANDS = (64, 129)
+# the banded fill past one warp's shared memory (K8 = 29,064): the lanes'
+# slots in a global scratch; on two long pairs with runs of band - 1 indels
+WIDE_BAND = 14529
 HIRSCH_CHECK = (8, 1000, 2000)  # pairs, shortest and longest reference
 SPLIT_LEVEL = (16384, 4096)  # query x reference of the split-shape pair
 # qlen of the last-row problems at the band wavefront's row seams (bands of
@@ -153,6 +173,11 @@ LAST_ROW_WIDTHS = (8, 4096, 16384)
 LONG_RUNS = (("lnw", 1, 131072, 16384), ("lnw", 64, 16384, 16384),
              ("anw", 64, 16384, 16384), ("lsw", 64, 16384, 16384))
 DPX_N = 1 << 20  # triples through each DPX function
+# argument sets the DPX device times rotate through, one rotation across
+# all the functions: 16 x 3 x 4 MB, four times the card's 50 MB L2, so a
+# call's inputs are the sets least recently read and come from HBM, and
+# no function starts on the sets the one before it left in L2
+DPX_SETS = 16
 # Bounds: the least time the card could take, on the published peaks of
 # an H100 SXM (NVIDIA's data sheet, Hopper white paper): 3.35 TB/s of HBM;
 # 132 SMs x 64 int32 lanes x 1.98 GHz boost = 16.7 T int32 (or DPX)
@@ -303,6 +328,7 @@ def phase_kernel(cases):
     """Returns {(algorithm, layout label): largest difference (0)}."""
     import torch
 
+    from tpu_align_torch import Algorithm
     from tpu_align_torch.convert import bucket_to_tensors
     from tpu_align_torch.kernels import banded as tb
     from tpu_align_torch.kernels import stagger as ts
@@ -340,7 +366,55 @@ def phase_kernel(cases):
                                             tensors[3])))
                 _say("kernel", f"{name}: exact")
         errs[(algo, _layout_label(layout))] = err
+    errs[(Algorithm.BSW, f"band={WIDE_BAND}")] = _check_wide_band()
     return errs
+
+
+def _check_wide_band() -> int:
+    """The banded fill at WIDE_BAND on wide_band_bucket's two long pairs,
+    dirs on and off, against the plain version (every valid cell, the
+    dirs decoded 16 word rows at a time), each call's wall time printed.
+    Returns the largest difference (0)."""
+    import torch
+
+    from tpu_align_torch import Algorithm, AlignmentParams
+    from tpu_align_torch.kernels import banded as tb
+    from tpu_align_torch.utils.synthetic import wide_band_bucket
+
+    params = AlignmentParams(band=WIDE_BAND)
+    b, t = wide_band_bucket(WIDE_BAND, DEVICE)
+    nr = b.num_real
+    err = 0
+    for tb_on in (True, False):
+        secs = []
+        outs = []
+        for fn in (tb.fill_banded_bucket_async, tb.fill_banded_reference):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(fn(Algorithm.BSW, params, *t, with_traceback=tb_on))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        got, want = outs
+        name = (f"bsw wide-band bucket ({b.batch}x{b.padded_qry}x"
+                f"{b.padded_ref}, qlen {b.qry_len[:nr].tolist()}) "
+                f"band={WIDE_BAND} (K8 {tb.frame_width(WIDE_BAND)}, slots "
+                f"in the global scratch) dirs={'on' if tb_on else 'off'}")
+        err = max(err, _compare((*got[:3], None), (*want[:3], None), nr,
+                                name, None))
+        if (got[3] is None) != (want[3] is None):
+            raise AssertionError(f"{name}: dirs present on one side only")
+        if got[3] is not None:
+            lens = (t[2][:nr], t[3][:nr], WIDE_BAND)
+            for w0 in range(0, got[3].shape[0], 16):
+                cg, cw = (tb.defined_codes(d[w0:w0 + 16, :nr], *lens,
+                                           first_word=w0)
+                          for d in (got[3], want[3]))
+                if not torch.equal(cg, cw):
+                    raise AssertionError(f"{name}: dirs differ at a defined "
+                                         f"cell (word rows {w0}..)")
+        _say("kernel", f"{name}: exact (scores {got[0][:nr].tolist()}); "
+             f"kernel {secs[0]:.3f} s, plain {secs[1]:.3f} s")
+    return err
 
 
 def _walk_diff(got, want, got_c, want_c, label: str) -> int:
@@ -382,8 +456,10 @@ def phase_walk(cases):
         long_run_bucket,
         seam_bucket,
         synthetic_dataset,
+        wide_band_bucket,
     )
     from tpu_align_torch.convert import bucket_to_tensors
+    from tpu_align_torch.kernels import banded as tb
     from tpu_align_torch.kernels import stagger as ts
     from tpu_align_torch.traceback import device as td
     from tpu_align_torch.traceback import walk_kernel as wk
@@ -422,6 +498,24 @@ def phase_walk(cases):
                                                     want_c, name))
             _say("walk", f"{name}: exact (max_nev {int(got_c[2])}, "
                  f"total {int(got_c[3])} of {got_c[0].numel()} slots)")
+    # the wide band: runs of WIDE_BAND - 1 indels take the cursor's window
+    # to both edges of a 29,064-slot frame
+    params = AlignmentParams(band=WIDE_BAND)
+    b, t = wide_band_bucket(WIDE_BAND, DEVICE)
+    sc, sr, sj, dirs = tb.fill_banded_bucket_async(Algorithm.BSW, params,
+                                                   *t)
+    got = wk.device_walk(Algorithm.BSW, params, dirs, sr, sj, sc, 32)
+    got_c = wk.compact_events(got[1], got[2])
+    want = td.device_walk_reference(Algorithm.BSW, params, dirs, sr, sj, sc,
+                                    32)
+    want_c = td.compact_events_reference(want[1], want[2])
+    torch.cuda.synchronize()
+    name = (f"bsw wide-band bucket ({b.batch}x{b.padded_qry}x"
+            f"{b.padded_ref}) band={WIDE_BAND}")
+    errs[Algorithm.BSW] = max(errs[Algorithm.BSW],
+                              _walk_diff(got, want, got_c, want_c, name))
+    _say("walk", f"{name}: exact (longest lane "
+         f"{int(td.lane_moves(got[0]).max())} moves)")
     # stream mode forced through the wrapper: every lane of these mutated
     # copies has more than 2 indels, so ev_max=2 overflows and the packed
     # moves replay
@@ -805,24 +899,14 @@ def _last_rows_diff(got, want, ref_len, num_real: int, label: str) -> int:
 
 
 def _split_inputs(k: int, n: int):
-    """Random (N, 2K) last rows with ties (a small value set) and NEG
-    entries, an all-NEG subproblem, and widths 0..n: split_reduce's
-    arguments on the card."""
+    """utils/synthetic.py's random split-reduction inputs (seed 24) on the
+    card: ties, NEG entries, an all-NEG subproblem, widths 0..n."""
     import torch
 
-    neg = -(2**30)
-    rng = np.random.default_rng(24)
-    last = rng.integers(-6, 3, (n, 2 * k)).astype(np.int32)
-    last[rng.random((n, 2 * k)) < 0.1] = neg
-    last[:, 2:4] = neg
-    flast = np.where(rng.random((n, 2 * k)) < 0.5, neg,
-                     last - 2).astype(np.int32)
-    nn = rng.integers(0, n + 1, k).astype(np.int32)
-    nn[0], nn[-1] = 0, n
-    fhb, bhb = (rng.integers(-5, 1, k).astype(np.int32) for _ in range(2))
-    go = np.full(k, -4, np.int32)
+    from tpu_align_torch.utils.synthetic import split_reduce_inputs
+
     return [torch.from_numpy(x).to(DEVICE)
-            for x in (last, flast, fhb, bhb, nn, go)]
+            for x in split_reduce_inputs(k, n, seed=24)]
 
 
 def phase_rowscan(cases, main_buckets):
@@ -836,7 +920,11 @@ def phase_rowscan(cases, main_buckets):
     from tpu_align_torch.kernels import fill as rs
     from tpu_align_torch.kernels import stagger as ts
     from tpu_align_torch.traceback import hirschberg as th
-    from tpu_align_torch.utils.synthetic import rowscan_seam_bucket
+    from tpu_align_torch.utils.synthetic import (
+        SPLIT_REDUCE_SHAPES,
+        rowscan_seam_bucket,
+        split_reduce_inputs,
+    )
 
     params = AlignmentParams()
     b = main_buckets[0]
@@ -952,6 +1040,13 @@ def phase_rowscan(cases, main_buckets):
     reduce_cases += [("random 64 subs x 16384, linear",
                       [rand[0], None, *rand[2:]]),
                      ("random 64 subs x 16384, affine", rand)]
+    # the shapes the kernel's grid splits differently
+    for k, n, kind in SPLIT_REDUCE_SHAPES:
+        x = [torch.from_numpy(v).to(DEVICE)
+             for v in split_reduce_inputs(k, n, kind)]
+        reduce_cases += [(f"{kind} {k} subs x {n}, linear",
+                          [x[0], None, *x[2:]]),
+                         (f"{kind} {k} subs x {n}, affine", x)]
     for name, args in reduce_cases:
         got = th.split_reduce(*args)
         want = th.split_reduce_reference(*args)
@@ -1094,7 +1189,49 @@ def phase_hirschberg():
              + f", host recursion {host:.4f} s; peak device memory "
              f"{peak / 2**20:.1f} MiB; direction tensor never built "
              f"{cells * bits // 8} bytes")
-    return runs
+    return runs, _split_levels()
+
+
+def _split_levels():
+    """The split reduction's arguments at each level of LONG_RUNS' LNW 64
+    x 16,384^2 run, captured from one more run of it on the card, each
+    level's kernel output held against split_reduce_reference.  Returns
+    [(label, args)] for the timing phase."""
+    import torch
+
+    from tpu_align_torch import Algorithm, AlignmentParams
+    from tpu_align_torch.traceback import hirschberg as th
+
+    name, npairs, q, r = LONG_RUNS[1]
+    captured = []
+    kernel = th.split_reduce
+
+    def capture(*args):
+        out = kernel(*args)
+        captured.append(([None if a is None else a.clone() for a in args],
+                         out.clone()))
+        return out
+
+    th.split_reduce = capture
+    try:
+        th.hirschberg_align_batch(Algorithm(name), AlignmentParams(),
+                                  _long_pairs(npairs, q, r), device=DEVICE)
+    finally:
+        th.split_reduce = kernel
+    levels = []
+    for depth, (args, got) in enumerate(captured, 1):
+        want = th.split_reduce_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"split_reduce, {name} {npairs} x ({q} x "
+                                 f"{r}) level {depth}: differs from the "
+                                 "plain version")
+        n, k2 = args[0].shape
+        label = f"{name} level {depth}: {args[2].numel()} subs x {n}"
+        levels.append((label, args))
+        _say("hirsch", f"split_reduce, {label} (last rows {n} x {k2}): "
+             "exact")
+    return levels
 
 
 def _count_text(counts) -> str:
@@ -1256,11 +1393,14 @@ def _per_event(t: dict, fn, events: int, label: str) -> None:
          f"(profiler); {events} events, {t['ns_per_event']:.3f} ns an event")
 
 
-def phase_timing(main_buckets, split_inputs):
+def phase_timing(main_buckets, split_inputs, split_levels):
     """Each kernel beside its plain version on one bucket (the last-row
     fills at the split-level shape, the split reduction at the 64-pair top
     level), with its bound and, where one PyTorch call computes the same
-    function, that call's time; returns {name: kernels-line fields}."""
+    function, that call's time; then device times by the profiler: the
+    banded fill at WIDE_BAND, the split reduction at each level of the LNW
+    64 x 16,384^2 run, each DPX function; returns {name: kernels-line
+    fields}."""
     import torch
 
     from tpu_align_torch import Algorithm, AlignmentParams
@@ -1332,6 +1472,22 @@ def phase_timing(main_buckets, split_inputs):
              f"{'on' if dirs else 'off'}: device {rec[key]:.4f} ms a call "
              f"(profiler); bound {bound[0]:.6f} ms ({bound[1]}), "
              f"{bound[0] / rec[key]:.4f} of it")
+    # the same bucket at WIDE_BAND: the slots in the global scratch
+    wide = AlignmentParams(band=WIDE_BAND)
+    wide_cells = _band_cells(b, WIDE_BAND)
+
+    def wide_fill():
+        return tb.fill_banded_bucket_async(bsw, wide, *t)
+
+    rec["wide_device_ms"] = device_ms(wide_fill, reps=2)
+    bound = _fill_bound(bsw, t, wide_fill(), wide_cells)
+    rec["wide_bound_ms"] = bound[0]
+    _say("timing", f"bsw banded fill, {desc}, band {WIDE_BAND} (K8 "
+         f"{tb.frame_width(WIDE_BAND)}, slots in the global scratch), dirs "
+         f"on: device {rec['wide_device_ms']:.4f} ms a call (profiler), "
+         f"{wide_cells / rec['wide_device_ms'] / 1e6:.1f} GCUPS over its "
+         f"{wide_cells} band cells; bound {bound[0]:.6f} ms ({bound[1]}), "
+         f"{bound[0] / rec['wide_device_ms']:.4f} of it")
     for key, algo, fill in (
             ("stagger_walk", lnw, ts.fill_stagger_bucket_async),
             ("lsw_stagger_walk", Algorithm.LSW, ts.fill_stagger_bucket_async),
@@ -1493,29 +1649,119 @@ def phase_timing(main_buckets, split_inputs):
         return [torch.argmax(x[:, 0::2] + x[:, 1::2].flip(0), dim=0)
                 for x in (hlast, flast)]
 
+    top = f"affine top, {k2 // 2} subs x {n_rows}"
     out["split_reduce"] = _in_turns(
         f"split_reduce, {k2 // 2} subproblems x {n_rows} columns, affine",
         lambda: th.split_reduce(*rand),
         lambda: th.split_reduce_reference(*rand),
-        bound=_bound(_nbytes(*rand) + 4 * 4 * (k2 // 2),
-                     2 * 3 * hlast.numel()),
-        library=argmax_rows)
+        bound=_split_bound(rand), library=argmax_rows)
+    shapes = split_reduce_times(split_levels + [(top, rand)])
+    out["split_reduce"]["device_ms"] = shapes[top]["device_ms"]
+    out["split_reduce"]["shapes"] = shapes
+    out["dpx_apply"] = dpx_device_times()
     return out
+
+
+def _split_bound(args):
+    """The split reduction reads, a pass, F's and B's entries of each
+    subproblem's min(nn, n) rows (none past its width), the (K,) vectors
+    once, and writes (4, K); 3 operations a (k, i) a pass."""
+    hlast, flast, _, _, nn, _ = args
+    passes = 1 if flast is None else 2
+    k = nn.numel()
+    rows = int(nn.long().clamp(max=hlast.shape[0]).sum())
+    nbytes = passes * 8 * rows + _nbytes(*args[2:]) + 16 * k
+    return _bound(nbytes, passes * 3 * (hlast.shape[0] + 1) * k)
+
+
+def split_reduce_times(cases) -> dict:
+    """The split reduction's device time (profiler) on each (label, args)
+    of cases, beside its bound: {label: {subs, rows, device_ms, bound_ms,
+    bound_by, share}}."""
+    from tpu_align_torch.traceback import hirschberg as th
+
+    shapes = {}
+    for label, args in cases:
+        dev = device_ms(lambda: th.split_reduce(*args))
+        bound = _split_bound(args)
+        shapes[label] = {"subs": args[2].numel(), "rows": args[0].shape[0],
+                         "affine": args[1] is not None, "device_ms": dev,
+                         "bound_ms": bound[0], "bound_by": bound[1],
+                         "share": bound[0] / dev}
+        _say("timing", f"split_reduce, {label}: device {dev:.4f} ms a call "
+             f"(profiler); bound {bound[0]:.6f} ms ({bound[1]}), "
+             f"{bound[0] / dev:.4f} of it")
+    return shapes
+
+
+def dpx_device_times() -> dict:
+    """Each DPX function's device time (profiler) on 2**20 triples, its
+    calls rotating through DPX_SETS argument sets that together pass the
+    card's L2 in one rotation, beside its bytes bound; then the wrapper's
+    host cost a call
+    (its broadcast, contiguous, empty and ctypes call), over calls that
+    do not wait for the card.  Returns {device_ms (the 36 summed), shapes
+    {name: ...}, wrapper_host_ms}."""
+    import itertools
+
+    import torch
+
+    from tpu_align_torch.ops import dpx
+
+    rng = np.random.default_rng(1)
+    words = [torch.from_numpy(rng.integers(0, 2**32, (3, DPX_N),
+                                           dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)).to(DEVICE)
+             for _ in range(DPX_SETS)]
+    shapes = {}
+    sets = {}
+    turn = itertools.cycle(range(DPX_SETS))
+    for name in dpx.OPS:
+        kind, nargs, _ = dpx._TABLE[name]
+        sets[name] = [[x if kind == "s32" else x.view(torch.uint32)
+                       for x in w[:nargs]] for w in words]
+        fn, args = getattr(dpx, name), sets[name]
+        dev = device_ms(lambda: fn(*args[next(turn)]), reps=2 * DPX_SETS)
+        preds = (2 if "16x2" in name else 1) if name.startswith("vib") else 0
+        bound = _bound(((nargs + 1) * 4 + preds) * DPX_N, 2 * DPX_N)
+        shapes[name] = {"device_ms": dev, "bound_ms": bound[0],
+                        "bound_by": bound[1], "share": bound[0] / dev}
+        _say("timing", f"dpx {name}, {DPX_N} triples, {DPX_SETS} argument "
+             f"sets in turn: device {dev:.4f} ms a call (profiler); bound "
+             f"{bound[0]:.6f} ms ({bound[1]}), {bound[0] / dev:.4f} of it")
+    rounds = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        for name in dpx.OPS:
+            getattr(dpx, name)(*sets[name][0])
+    host = (time.perf_counter() - t0) * 1e3 / (rounds * len(dpx.OPS))
+    torch.cuda.synchronize()
+    total = sum(v["device_ms"] for v in shapes.values())
+    shares = [v["share"] for v in shapes.values()]
+    _say("timing", f"dpx: the 36 functions' device times sum to {total:.4f}"
+         f" ms; shares of the bound {min(shares):.4f}-{max(shares):.4f}; "
+         f"the wrapper's host cost {host:.4f} ms a call")
+    return {"device_ms": total, "shapes": shapes, "wrapper_host_ms": host}
 
 
 def phase_times(e2e: bool = False) -> dict:
     r"""B2's bucket modes and B5 of the tpu_align_torch imported, by
     device_ms, for comparisons of two checkouts in turns on one card
     (parent, change, change, parent); not part of main().  For another
-    checkout's package, unpack its tpu_align_torch/ alone into a directory
-    and put it first on the path, e.g. from this root:
+    checkout's package, unpack its tpu_align_torch/ and native/ (the
+    package builds its host library from the native/ beside it) into a
+    directory and put it first on the path, e.g. from this root:
         PYTHONPATH=build/parent:. python3 -P -c \
             "import chip_smoke as cs; cs.phase_card(); print(cs.phase_times())"
     The shapes: the 2048-pair bucket (`main_path_bucket`) with dirs, all
     four aligners, and scores only, LNW and LSW; LSW scores only at phase
     8's 64 x 16,384^2 (the end points); LNW with dirs on 256 problems of
     256 x 16,384 (short queries against long references); the banded walk
-    at bands 16 and 20.  With e2e, then the BSW run and the -kernel
+    at bands 16 and 20; the banded fill at band 16, dirs on and off; the
+    split reduction at each level of the LNW 64 x 16,384^2 Hirschberg run
+    and at the random affine 64 x 16,384 inputs; each DPX function over
+    DPX_SETS argument sets.  With e2e, then the BSW run and the -kernel
     rowscan run on the E2E_PAIRS pairs, once to warm up and once profiled
     (device busy, wall).  Returns {label: ms}."""
     from tpu_align_torch import Algorithm, AlignmentParams
@@ -1555,6 +1801,16 @@ def phase_times(e2e: bool = False) -> dict:
         sc, sr, sj, dirs = tb.fill_banded_bucket_async(Algorithm.BSW, p, *t)
         timed(f"banded walk band {band}",
               lambda: wk.device_walk(Algorithm.BSW, p, dirs, sr, sj, sc, 32))
+    for dirs in (True, False):
+        timed(f"banded fill band 16 dirs {'on' if dirs else 'off'}",
+              lambda: tb.fill_banded_bucket_async(Algorithm.BSW, params, *t,
+                                                  with_traceback=dirs))
+    cases = _split_levels() + [("affine top, 64 subs x 16384",
+                                _split_inputs(64, 16384))]
+    for label, v in split_reduce_times(cases).items():
+        ms[f"split_reduce {label}"] = v["device_ms"]
+    for name, v in dpx_device_times()["shapes"].items():
+        ms[f"dpx {name}"] = v["device_ms"]
     if e2e:  # last: after a profiled engine run the profiler drops records
         from tpu_align_torch.runtime.engine import AlignmentEngine
         from tpu_align_torch.utils.synthetic import synthetic_dataset
@@ -1718,8 +1974,8 @@ def main(argv=None) -> int:
     phase_goldens()
     runs, profiled = phase_e2e(ds, main_buckets, profile)
     rowscan_err, split_inputs = phase_rowscan(cases, main_buckets)
-    hirsch = phase_hirschberg()
-    times = phase_timing(main_buckets, split_inputs)
+    hirsch, split_levels = phase_hirschberg()
+    times = phase_timing(main_buckets, split_inputs, split_levels)
     phase_profile(ds, profiled)
     if "jax" in sys.modules or "tpu_align" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
@@ -1737,7 +1993,9 @@ def main(argv=None) -> int:
                                      "ns_per_move", "events",
                                      "ns_per_event", "scores_device_ms",
                                      "scores_bound_ms", "shapes",
-                                     "band20_device_ms", "band20_bound_ms")
+                                     "band20_device_ms", "band20_bound_ms",
+                                     "wide_device_ms", "wide_bound_ms",
+                                     "wrapper_host_ms")
                    if k in t}}
 
     def fill_errs(algo):
@@ -1802,7 +2060,7 @@ def main(argv=None) -> int:
                hirsch["lnw-stagger"]["stagger_last_rows"],
                rowscan_err["stagger_last_rows"], times["stagger_last_rows"]),
         record("split_reduce", csrc + "split_reduce.cu",
-               "tpu_align/traceback/hirschberg.py:115",
+               "tpu_align/traceback/hirschberg.py:116",
                hirsch[long_lnw]["split_reduce"],
                rowscan_err["split_reduce"], times["split_reduce"]),
         record("s16x2_core_int32", csrc + "s16x2_core.cu", b6,
@@ -1812,7 +2070,8 @@ def main(argv=None) -> int:
                s16[("packed", jax_width)]["launches"],
                s16[("packed", jax_width)]["err"], s16[("packed", jax_width)]),
         record("dpx_apply", csrc + "dpx_apply.cu", "tpu_align/ops/dpx.py:90",
-               dpx_rec["launches"], dpx_rec["err"], dpx_rec),
+               dpx_rec["launches"], dpx_rec["err"],
+               {**dpx_rec, **times["dpx_apply"]}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

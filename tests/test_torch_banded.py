@@ -3,8 +3,11 @@
 The same bucket goes through tpu_align.kernels.banded.fill_banded_bucket
 (the Pallas kernel in interpret mode, as the JAX tests run it on CPU) and
 through tpu_align_torch's wrapper on CPU tensors (its plain PyTorch
-version), at bands 1, 3, 16, 20 and 32 and, with weights under which a
-deletion can win at the band's edge, at bands 3 and 4.  The walk runs
+version), at bands 1, 3, 16, 20 and 32, with weights under which a
+deletion can win at the band's edge, at bands 3 and 4, and on a few short
+pairs at bands 14,528 and 14,529 (K8 = 29,056, the widest frame whose
+slots fit one warp's shared memory in the CUDA fill, and 29,064, the
+first past it, whose slots live in a global scratch).  The walk runs
 from the JAX fill's dirs through both packages: tpu_align's Pallas
 banded walker (interpret mode) and its XLA walker _device_walk_banded,
 against the port's plain walk.  Integer work, so every comparison is
@@ -53,7 +56,12 @@ CASES = {
     "band32": AlignmentParams(band=32),
     "band3-alt": AlignmentParams(band=3, **ALT),
     "band4-alt": AlignmentParams(band=4, **ALT),
+    # K8 = 29,056 and 29,064: the CUDA fill's slots in shared memory, then
+    # in a global scratch; on the WIDE_PAIRS bucket
+    "band14528": AlignmentParams(band=14528),
+    "band14529": AlignmentParams(band=14529),
 }
+WIDE = ("band14528", "band14529")
 _rng = random.Random(0xB5)
 _mutated = synthetic_dataset(20, min_len=20, max_len=70, seed=5)
 PAIRS = (
@@ -65,8 +73,20 @@ PAIRS = (
        for _ in range(15)]
     + [(random_dna(_rng, 1, 70), random_dna(_rng, 1, 70)) for _ in range(10)]
 )
-# one bucket shape, so the JAX side compiles one shape per band
+# a few short pairs for the WIDE bands, whose frames hold 29 k slots a
+# row: the JAX fill in interpret mode takes seconds a row bucket of 16
+WIDE_PAIRS = [p for p in PAIRS if max(map(len, p)) <= 32][:8]
+# one bucket shape a set of pairs, so the JAX side compiles one shape per
+# band
 SPEC = dict(batch_pairs=64, query_multiple=128, ref_multiple=128)
+BUCKETS = {"narrow": (PAIRS, SPEC),
+           "wide": (WIDE_PAIRS, dict(batch_pairs=len(WIDE_PAIRS),
+                                     query_multiple=32, ref_multiple=32))}
+
+
+def _kind(case):
+    """The bucket a case runs on."""
+    return "wide" if case in WIDE else "narrow"
 
 
 def _jax(params):
@@ -75,32 +95,50 @@ def _jax(params):
 
 
 @pytest.fixture(scope="module")
-def bucket():
-    (b,) = bucketize(PairDataset.from_pairs(PAIRS), BucketSpec(**SPEC))
-    assert b.num_real == len(PAIRS)
-    return b
+def buckets():
+    out = {}
+    for kind, (pairs, spec) in BUCKETS.items():
+        (b,) = bucketize(PairDataset.from_pairs(pairs), BucketSpec(**spec))
+        assert b.num_real == len(pairs)
+        out[kind] = b
+    return out
 
 
 @pytest.fixture(scope="module")
-def jax_bucket():
+def jax_buckets():
     """The same pairs through the JAX package's own bucketize."""
-    (b,) = jio.bucketize(jio.PairDataset.from_pairs(PAIRS),
-                         jio.BucketSpec(**SPEC))
-    return b
+    out = {}
+    for kind, (pairs, spec) in BUCKETS.items():
+        (out[kind],) = jio.bucketize(jio.PairDataset.from_pairs(pairs),
+                                     jio.BucketSpec(**spec))
+    return out
 
 
 @pytest.fixture(scope="module")
-def jax_fills(jax_bucket):
-    b = jax_bucket
-    return {name: jb.fill_banded_bucket(_jax(p), b.ref_tokens, b.qry_tokens,
-                                        b.ref_len, b.qry_len)
-            for name, p in CASES.items()}
+def bucket(buckets):
+    return buckets["narrow"]
 
 
 @pytest.fixture(scope="module")
-def port_fills(bucket):
-    tensors = bucket_to_tensors(bucket, "cpu")
-    return {name: tb.fill_banded_bucket(BSW, p, *tensors)
+def jax_bucket(jax_buckets):
+    return jax_buckets["narrow"]
+
+
+@pytest.fixture(scope="module")
+def jax_fills(jax_buckets):
+    out = {}
+    for name, p in CASES.items():
+        b = jax_buckets[_kind(name)]
+        out[name] = jb.fill_banded_bucket(_jax(p), b.ref_tokens,
+                                          b.qry_tokens, b.ref_len, b.qry_len)
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_fills(buckets):
+    tensors = {kind: bucket_to_tensors(b, "cpu")
+               for kind, b in buckets.items()}
+    return {name: tb.fill_banded_bucket(BSW, p, *tensors[_kind(name)])
             for name, p in CASES.items()}
 
 
@@ -112,11 +150,11 @@ def _codes(fill, bucket, band):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_scores_and_start_cells_match_jax(bucket, jax_fills, port_fills,
+def test_scores_and_start_cells_match_jax(buckets, jax_fills, port_fills,
                                           case):
     """The best cell, first in row-major order; all 0 when no cell scores
     above 0."""
-    n = bucket.num_real
+    n = buckets[_kind(case)].num_real
     want, got = jax_fills[case], port_fills[case]
     for field in ("scores", "start_row", "start_col"):
         np.testing.assert_array_equal(getattr(got, field)[:n],
@@ -136,8 +174,9 @@ def test_scores_only_matches_jax(bucket, jax_fills):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_dirs_match_jax_at_valid_cells(bucket, jax_fills, port_fills, case):
+def test_dirs_match_jax_at_valid_cells(buckets, jax_fills, port_fills, case):
     band = CASES[case].band
+    bucket = buckets[_kind(case)]
     want, got = jax_fills[case], port_fills[case]
     assert got.dirs.shape == np.asarray(want.dirs).shape
     assert got.dirs.shape[2] == tb.frame_width(band) == jb.frame_width(band)
@@ -161,8 +200,24 @@ def test_edge_slot_up_neighbour(bucket, jax_fills, port_fills, band, trap):
         assert (dels == 0) if trap else (dels > 0)
 
 
+@pytest.mark.parametrize("first_word", [0, 1, 3])
+def test_defined_codes_of_word_slices(bucket, port_fills, first_word):
+    """Word rows from first_word on decode to those rows of the whole
+    decode, so a wide frame's codes can be compared a slice at a time."""
+    n = bucket.num_real
+    dirs = torch.from_numpy(np.array(port_fills["band16"].dirs)[:, :n])
+    lens = (torch.from_numpy(bucket.ref_len[:n]),
+            torch.from_numpy(bucket.qry_len[:n]), 16)
+    whole = tb.defined_codes(dirs, *lens)
+    part = tb.defined_codes(dirs[first_word:first_word + 2], *lens,
+                            first_word=first_word)
+    assert torch.equal(part, whole[16 * first_word:16 * (first_word + 2)])
+    assert int((part >= 0).sum()) > 0
+
+
 @pytest.mark.parametrize("band,k8", [(1, 8), (3, 8), (4, 8), (5, 16),
-                                     (16, 32)])
+                                     (16, 32), (14528, 29056),
+                                     (14529, 29064)])
 def test_frame_width(band, k8):
     assert tb.frame_width(band) == jb.frame_width(band) == k8
 
@@ -178,10 +233,10 @@ def _seqs(packed, steps, nb, unpack=jd.unpack_moves):
 
 
 @pytest.fixture(scope="module")
-def jax_walks(bucket, jax_fills):
+def jax_walks(buckets, jax_fills):
     out = {}
-    nb = bucket.num_real
     for case, fill in jax_fills.items():
+        nb = buckets[_kind(case)].num_real
         params = CASES[case]
         sc, sr, sj, dirs = (np.asarray(x) for x in (
             fill.scores, fill.start_row, fill.start_col, fill.dirs))
@@ -198,10 +253,10 @@ def jax_walks(bucket, jax_fills):
 
 
 @pytest.fixture(scope="module")
-def port_walks(bucket, jax_fills):
+def port_walks(buckets, jax_fills):
     out = {}
-    nb = bucket.num_real
     for case, fill in jax_fills.items():
+        nb = buckets[_kind(case)].num_real
         params = CASES[case]
         sc, sr, sj, dirs = _tensors(fill)
         walk = wk.device_walk(BSW, params, dirs, sr, sj, sc, 32)
@@ -223,14 +278,15 @@ def test_walk_moves_match_jax(jax_walks, port_walks, case, walker):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_finalized_walk_matches_jax(bucket, jax_walks, port_walks, case):
+def test_finalized_walk_matches_jax(buckets, jax_walks, port_walks, case):
     """The mode both packages take -- events, except band 3 with the alt
-    weights, whose busiest lane has 36 events, past ev_max = 32 -- and in
-    it equal nev and flat[:total] or moves; start cells and scores."""
-    nb = bucket.num_real
+    weights, whose busiest lane has 36 events, past ev_max = 32, and the
+    WIDE bands, whose path bound 2M + band - 1 passes 2**12 -- and in it
+    equal nev and flat[:total] or moves; start cells and scores."""
+    nb = buckets[_kind(case)].num_real
     got, want = port_walks[case]["fin"], jax_walks[case]["fin"]
     assert got[0] == want[0] == ("stream" if case == "band3-alt"
-                                 else "events")
+                                 or case in WIDE else "events")
     for g, w in zip(got[3:], want[3:]):
         np.testing.assert_array_equal(g[:nb], np.asarray(w)[:nb])
     if got[0] == "events":
@@ -309,7 +365,7 @@ def test_walk_on_long_runs_across_word_rows(run_walks, band):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_compact_events_matches_jax(bucket, jax_fills, case):
+def test_compact_events_matches_jax(buckets, jax_fills, case):
     """compact_events_reference against _compact_events on the same
     banded move stream."""
     ev_max = 256
@@ -324,14 +380,16 @@ def test_compact_events_matches_jax(bucket, jax_fills, case):
     upto = min(int(total), flat.shape[0])
     np.testing.assert_array_equal(flat[:upto].numpy(),
                                   np.asarray(want[0])[:upto])
-    assert int(nev[bucket.num_real:].sum()) == 0  # padding lanes walk nothing
+    # padding lanes walk nothing
+    assert int(nev[buckets[_kind(case)].num_real:].sum()) == 0
 
 
 @pytest.mark.skipif(not available(), reason="native library not built")
 @pytest.mark.parametrize("case", CASES)
-def test_replay_matches_jax(bucket, jax_bucket, jax_walks, port_walks, case,
-                            jax_replay):
+def test_replay_matches_jax(buckets, jax_buckets, jax_walks, port_walks,
+                            case, jax_replay):
     params = CASES[case]
+    bucket, jax_bucket = buckets[_kind(case)], jax_buckets[_kind(case)]
     got = td.bucket_arrays_from_finalized(BSW, bucket, params,
                                           port_walks[case]["fin"])
     want = jd.bucket_arrays_from_finalized(JAX_BSW, jax_bucket, _jax(params),
@@ -341,10 +399,11 @@ def test_replay_matches_jax(bucket, jax_bucket, jax_walks, port_walks, case,
 
 @pytest.mark.skipif(not available(), reason="native library not built")
 @pytest.mark.parametrize("case", CASES)
-def test_native_walk_of_port_dirs_matches_jax(bucket, jax_bucket, jax_fills,
-                                              port_fills, case):
+def test_native_walk_of_port_dirs_matches_jax(buckets, jax_buckets,
+                                              jax_fills, port_fills, case):
     """The native host walker reads the port's banded dirs (skew_band)."""
     params = CASES[case]
+    bucket, jax_bucket = buckets[_kind(case)], jax_buckets[_kind(case)]
     got = [r.block() for r in traceback_bucket(BSW, bucket,
                                                port_fills[case], params)]
     want = [r.block() for r in jax_traceback(JAX_BSW, jax_bucket,

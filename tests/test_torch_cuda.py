@@ -1,14 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the stagger fill (LNW, LSW, ANW; band seams included) and its
 last-row variant, the banded fill (BSW; bands 1-129, seams and the
-main-path bucket), the row-sweep fill, a band wavefront in every mode
+main-path bucket; bands 14,528-20,000, whose slots pass one warp's shared
+memory, on long pairs, and through the CLI), the row-sweep fill, a band
+wavefront in every mode
 (all four aligners, dirs and scores: the wavefront's seams with planted
 ties, wide references, repeated launches; its last rows: row seams,
 widths, 1-128 problems, the split-level shape, repeated launches), the
 walk over both layouts (seam, long-run and main-path buckets; the banded
-walk at bands 1-32 and on runs to the band's edge slots at bands 3-129),
-the event compaction,
-the Hirschberg split reduction and the Hirschberg path as a whole, the
+walk at bands 1-32 and on runs to the band's edge slots at bands 3-129
+and 14,528-20,000), the event compaction, the Hirschberg split reduction
+(also on the shapes its grid splits differently, and repeated) and the
+Hirschberg path as a whole, the
 DPX op layer (csrc/dpx_apply.cu, all 36 functions) and the s16x2
 experiment's core (csrc/s16x2_core.cu, both variants).
 
@@ -19,33 +22,42 @@ tests/conftest.py imports it, so run these there without the conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from tpu_align_torch import Algorithm, AlignmentParams
+from tpu_align_torch.cli import main as cli_main
 from tpu_align_torch.convert import bucket_to_tensors
 from tpu_align_torch.io import BucketSpec, PairDataset, bucketize
+from tpu_align_torch.io.dataset import parse_pair_file
 from tpu_align_torch.kernels import banded as tb
 from tpu_align_torch.kernels import fill as rs
 from tpu_align_torch.kernels import stagger as ts
 from tpu_align_torch.ops import dpx
+from tpu_align_torch.oracle.api import align_pair
 from tpu_align_torch.scripts import exp_s16x2
 from tpu_align_torch.traceback import device as td
 from tpu_align_torch.traceback import hirschberg as th
 from tpu_align_torch.traceback import walk_kernel as wk
 from tpu_align_torch.utils.synthetic import (
+    SPLIT_REDUCE_SHAPES,
     band_run_pairs,
     long_run_bucket,
     main_path_bucket,
     rowscan_seam_bucket,
     seam_bucket,
+    split_reduce_inputs,
     synthetic_dataset,
+    wide_band_bucket,
 )
 
 pytestmark = pytest.mark.cuda
 
 PARAMS = AlignmentParams()
+GOLDENS = os.path.join(os.path.dirname(__file__), "..", "goldens")
 
 
 @pytest.fixture
@@ -234,8 +246,11 @@ def _assert_same_banded(got, want, ref_len, qry_len, num_real, band):
     if got[3] is not None:
         assert got[3].shape == want[3].shape
         lens = (ref_len[:num_real], qry_len[:num_real], band)
-        assert torch.equal(tb.defined_codes(got[3][:, :num_real], *lens),
-                           tb.defined_codes(want[3][:, :num_real], *lens))
+        step = 16  # word rows a decode: a wide frame's codes fit memory
+        for w0 in range(0, got[3].shape[0], step):
+            g, w = (d[w0:w0 + step, :num_real] for d in (got[3], want[3]))
+            assert torch.equal(tb.defined_codes(g, *lens, first_word=w0),
+                               tb.defined_codes(w, *lens, first_word=w0))
 
 
 BANDS = [1, 3, 16, 20, 32]  # K8 = 8, 8, 32, 40 (two slots a lane), 64
@@ -299,6 +314,80 @@ def test_banded_kernel_on_seams_and_the_main_path(cuda_device, bucket, band,
                                     with_traceback=with_traceback)
     torch.cuda.synchronize()
     _assert_same_banded(got, want, t[2], t[3], b.num_real, band)
+
+
+# K8 = 29,056, the widest frame whose slots fit one warp's shared memory,
+# then 29,064 and 40,000, whose slots live in the fill's global scratch
+WIDE_BANDS = [14528, 14529, 20000]
+
+
+@pytest.mark.parametrize("band", WIDE_BANDS)
+@pytest.mark.parametrize("with_traceback", [True, False])
+def test_banded_kernel_at_wide_bands(cuda_device, band, with_traceback):
+    """Two long pairs whose sides reach band + 64 bp or more (runs of band
+    - 1 indels between long flanks, wide_band_bucket), so both edge slots
+    1 and 2*band - 1 hold valid cells: one launch, equal to the plain
+    version at every valid cell."""
+    params = AlignmentParams(band=band)
+    b, t = wide_band_bucket(band, cuda_device)
+    assert min(b.qry_len[:b.num_real].min(),
+               b.ref_len[:b.num_real].min()) >= band + 64
+    before = tb.launches
+    got = tb.fill_banded_bucket_async(Algorithm.BSW, params, *t,
+                                      with_traceback=with_traceback)
+    assert tb.launches == before + 1
+    want = tb.fill_banded_reference(Algorithm.BSW, params, *t,
+                                    with_traceback=with_traceback)
+    torch.cuda.synchronize()
+    _assert_same_banded(got, want, t[2], t[3], b.num_real, band)
+
+
+@pytest.mark.parametrize("band", WIDE_BANDS)
+def test_banded_walk_at_wide_bands(cuda_device, band):
+    """The banded walk on the wide fills: each pair's path runs band - 1
+    insertions or deletions, so the cursor reaches slots 1 and 2*band - 1
+    (its 128-slot window at the frame's edges); equal to the plain walk
+    word for word."""
+    params = AlignmentParams(band=band)
+    b, t = wide_band_bucket(band, cuda_device)
+    scores, srow, scol, dirs = tb.fill_banded_bucket_async(
+        Algorithm.BSW, params, *t)
+    _walk_and_compact(Algorithm.BSW, params, dirs, srow, scol, scores,
+                      ts.STRIPE_S)
+    packed, _, _ = wk.device_walk(Algorithm.BSW, params, dirs, srow, scol,
+                                  scores, ts.STRIPE_S)
+    moves = td.unpack_moves(packed.cpu().numpy(),
+                            td.walk_steps(Algorithm.BSW, params, dirs.shape))
+    slots = set()
+    for lane in range(b.num_real):
+        i, j = int(srow[lane]), int(scol[lane])
+        for mv in moves[:, lane]:
+            if not mv:
+                break
+            slots.add(j - i + band)
+            i -= int(mv) != 3  # 3: insertion, 2: deletion
+            j -= int(mv) != 2
+    assert min(slots) == 1 and max(slots) == 2 * band - 1
+
+
+@pytest.mark.parametrize("traceback", ["host", "device"])
+def test_cli_at_a_wide_band_matches_the_oracle(cuda_device, tmp_path,
+                                               traceback):
+    """`tpu-align-torch -device cuda -algorithm bsw -band 14529`: the fill
+    with its slots in the global scratch, then either walk; blocks equal
+    to the oracle's."""
+    src = os.path.join(GOLDENS, "bsw", "input-data.txt")
+    out = tmp_path / "out.txt"
+    before = tb.launches
+    assert cli_main(["-pairs", src, "-algorithm", "bsw", "-band", "14529",
+                     "-traceback", traceback, "-device", "cuda",
+                     "-out", str(out)]) == 0
+    assert tb.launches > before
+    ds = parse_pair_file(src)
+    params = AlignmentParams(band=14529)
+    want = "".join(align_pair(Algorithm.BSW, params, *ds.pair(k),
+                              pair_num=k).block() for k in range(len(ds)))
+    assert out.read_text() == want
 
 
 def _walk_and_compact(algo, params, dirs, srow, scol, scores, stripe_s,
@@ -738,6 +827,39 @@ def test_split_reduce_kernel_matches_plain_version(cuda_device, affine):
     want = th.split_reduce_reference(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("k,n,kind", SPLIT_REDUCE_SHAPES)
+def test_split_reduce_kernel_on_grid_shapes(cuda_device, k, n, kind, affine):
+    """The shapes the kernel's grid splits differently (one subproblem,
+    K no multiple of 32, a part-full last chunk, maxima tied across
+    chunks): one launch, equal to the plain version."""
+    last, flast, fhb, bhb, nn, go = (
+        torch.from_numpy(x).to(cuda_device)
+        for x in split_reduce_inputs(k, n, kind))
+    before = th.launches
+    got = th.split_reduce(last, flast if affine else None, fhb, bhb, nn, go)
+    assert th.launches == before + 1
+    want = th.split_reduce_reference(last, flast if affine else None, fhb,
+                                     bhb, nn, go)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_split_reduce_kernel_repeats_bit_identical(cuda_device):
+    """Back-to-back launches of every shape share the ticket counters:
+    each leaves them at 0 for the next."""
+    args = []
+    for k, n, kind in SPLIT_REDUCE_SHAPES:
+        x = [torch.from_numpy(v).to(cuda_device)
+             for v in split_reduce_inputs(k, n, kind, seed=k)]
+        args += [x, [x[0], None, *x[2:]]]
+    first = [th.split_reduce(*a) for a in args]
+    for _ in range(3):
+        again = [th.split_reduce(*a) for a in args]
+        torch.cuda.synchronize()
+        assert all(torch.equal(f, g) for f, g in zip(first, again))
 
 
 @pytest.mark.parametrize("algo", [Algorithm.LNW, Algorithm.LSW,

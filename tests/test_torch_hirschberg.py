@@ -37,6 +37,10 @@ from tpu_align_torch.oracle.api import align_pair
 from tpu_align_torch.kernels.common import NEG
 from tpu_align_torch.runtime.engine import AlignmentEngine
 from tpu_align_torch.traceback import hirschberg as th
+from tpu_align_torch.utils.synthetic import (
+    SPLIT_REDUCE_SHAPES,
+    split_reduce_inputs,
+)
 from tests.conftest import random_dna
 
 pytestmark = pytest.mark.skipif(
@@ -183,9 +187,25 @@ def _split_inputs(seed: int, n: int, k: int, affine: bool):
 
 
 @pytest.mark.parametrize("affine", [False, True], ids=["linear", "affine"])
-@pytest.mark.parametrize("n,k", [(1, 1), (40, 9), (300, 17)])
-def test_split_reduce_matches_jax(affine, n, k):
-    last, flast, fhb, bhb, nn, go = _split_inputs(n + k, n, k, affine)
+@pytest.mark.parametrize("n,k,kind", [
+    pytest.param(1, 1, "random", id="1-1"),
+    pytest.param(40, 9, "random", id="40-9"),
+    pytest.param(300, 17, "random", id="300-17"),
+    # the shapes the CUDA kernel's grid splits differently
+    # (utils/synthetic.py SPLIT_REDUCE_SHAPES): one subproblem over long
+    # rows, a K that is no multiple of its 32-lane groups, rows that leave
+    # the last chunk part full, maxima tied across chunks, widths past the
+    # rows
+    *(pytest.param(n, k, kind, id=f"{n}-{k}" + ("" if kind == "random"
+                                                 else f"-{kind}"))
+      for k, n, kind in SPLIT_REDUCE_SHAPES),
+])
+def test_split_reduce_matches_jax(affine, n, k, kind):
+    if kind != "random":
+        last, flast, fhb, bhb, nn, go = split_reduce_inputs(k, n, kind)
+        flast = flast if affine else None
+    else:
+        last, flast, fhb, bhb, nn, go = _split_inputs(n + k, n, k, affine)
     want = jh._split_reduce_jit(
         jnp.asarray(last), jnp.asarray(flast if affine else last),
         jnp.asarray(fhb), jnp.asarray(bhb), jnp.asarray(nn), jnp.asarray(go),

@@ -67,10 +67,17 @@
 //   - each lane keeps its best with a strict > (rows in order, its slots
 //     in column order), and one warp reduction at the end takes the
 //     largest value, then the smallest i, then the smallest j.
-// No global scratch: the row lives in the lanes' registers.  S <= 8 (band
-// <= 128) runs from registers; a wider band runs the same code with the
-// lanes' slots in shared memory (slot s of lane l at [s*32 + l], one warp
-// a block), up to what a block's 227 KB hold: K8 <= 29,056, band <= 14,528.
+// Where a lane's slots (H and the dirs accumulators) live, by width:
+//   - S <= 8 (band <= 128): registers, no scratch;
+//   - K8 <= 29,056 (band <= 14,528): shared memory, slot s of lane l at
+//     [s*32 + l], one warp a block, as much as a block's 227 KB hold;
+//   - wider: a global scratch of (B, 2, 32*S) int32 that the wrapper
+//     allocates (ta_torch_banded_scratch_words gives its size), H at
+//     [b][0][s*32 + l] and the accumulators at [b][1][s*32 + l], so a
+//     warp's access to one slot of its lanes is one coalesced 128-byte
+//     line, as in shared memory.  The same kernel body runs on all three;
+//     this one is bound by the slots' traffic, each row reading and
+//     writing a pair's 2*32*S words (233 KB at K8 = 29,064) in L2 or HBM.
 //
 // The entry point launches on the caller's stream, never synchronises, and
 // returns cudaGetLastError() so a refused launch reaches the wrapper.
@@ -90,6 +97,13 @@ constexpr unsigned kFull = 0xffffffffu;
 // dynamic shared memory a block may use
 constexpr size_t kSmemBytes = 232448;
 
+// whether S slots a lane (H and accumulators) overflow one warp's shared
+// memory, so they go to the global scratch
+constexpr bool in_global(int S) {
+  return S > kMaxRegSlots &&
+         static_cast<size_t>(2) * 32 * S * sizeof(int32_t) > kSmemBytes;
+}
+
 constexpr uint32_t kDiagMatch = 0;
 constexpr uint32_t kDiagMismatch = 1;
 constexpr uint32_t kQueryDeletion = 2;
@@ -105,8 +119,8 @@ struct LaneSlots {
   __device__ uint32_t& Acc(int s) { return acc[s]; }
 };
 
-// The same for S slots in shared memory: slot s of lane l at [s*32 + l],
-// H first, then the accumulators.
+// The same for S slots in memory, shared or global: slot s of lane l at
+// [s*32 + l], H first, then the accumulators.
 template <>
 struct LaneSlots<0> {
   int32_t* h;
@@ -118,7 +132,8 @@ struct LaneSlots<0> {
   __device__ uint32_t& Acc(int s) { return acc[s * 32]; }
 };
 
-// kS slots a lane in registers, or kS = 0: S slots a lane in shared memory
+// kS slots a lane in registers; kS = 0: S slots a lane in shared memory;
+// kS = -1: S slots a lane in the global scratch
 template <int kS, bool kDirs>
 __global__ void __launch_bounds__(kWarps * 32)
 banded_fill_kernel(const uint8_t* __restrict__ ref,      // (B, N)
@@ -130,14 +145,18 @@ banded_fill_kernel(const uint8_t* __restrict__ ref,      // (B, N)
                    int32_t* __restrict__ score,
                    int32_t* __restrict__ srow,
                    int32_t* __restrict__ scol,
-                   uint32_t* __restrict__ dirs) {        // (MW, B, K8)
+                   uint32_t* __restrict__ dirs,          // (MW, B, K8)
+                   int32_t* __restrict__ scratch) {      // (B, 2, 32*S)
   extern __shared__ int32_t smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // the whole warp
   const int ns = kS > 0 ? kS : S;
-  LaneSlots<kS> sl(smem + static_cast<size_t>(warp) * 2 * 32 * ns, ns, lane);
+  int32_t* const slots =
+      kS < 0 ? scratch + static_cast<size_t>(b) * 2 * 32 * ns
+             : smem + static_cast<size_t>(warp) * 2 * 32 * ns;
+  LaneSlots<(kS > 0 ? kS : 0)> sl(slots, ns, lane);
   // never sweep past the padded widths, whatever the lengths claim
   const int rl = min(max(ref_len[b], 0), N);
   const int ql = min(max(qry_len[b], 0), M);
@@ -249,14 +268,15 @@ struct FillArgs {
   int32_t* sr;
   int32_t* cc;
   uint32_t* dr;
+  int32_t* scr;
 };
 
 template <int kS, bool kDirs>
 cudaError_t launch(cudaStream_t st, const FillArgs& a) {
   auto kernel = banded_fill_kernel<kS, kDirs>;
-  const int warps = kS > 0 ? kWarps : 1;
+  const int warps = kS != 0 ? kWarps : 1;
   const size_t smem =
-      kS > 0 ? 0 : static_cast<size_t>(warps) * 2 * 32 * a.S * 4;
+      kS != 0 ? 0 : static_cast<size_t>(warps) * 2 * 32 * a.S * 4;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -266,7 +286,7 @@ cudaError_t launch(cudaStream_t st, const FillArgs& a) {
   const dim3 grid((a.B + warps - 1) / warps);
   kernel<<<grid, warps * 32, smem, st>>>(
       a.rf, a.qr, a.rl, a.ql, a.B, a.N, a.M, a.K8, a.band, a.S, a.match,
-      a.mismatch, a.gap, a.sc, a.sr, a.cc, a.dr);
+      a.mismatch, a.gap, a.sc, a.sr, a.cc, a.dr, a.scr);
   return cudaGetLastError();
 }
 
@@ -277,29 +297,43 @@ cudaError_t dispatch(cudaStream_t st, const FillArgs& a) {
     case 2: return launch<2, kDirs>(st, a);
     case 4: return launch<4, kDirs>(st, a);
     case 8: return launch<8, kDirs>(st, a);
-    default: return launch<0, kDirs>(st, a);
+    default:
+      return in_global(a.S) ? launch<-1, kDirs>(st, a)
+                            : launch<0, kDirs>(st, a);
   }
+}
+
+// S: the least power of two with 32*S >= K8, or ceil(K8/32) past 8
+int slots_per_lane(int K8) {
+  int S = 1;
+  while (32 * S < K8 && S < kMaxRegSlots) S *= 2;
+  if (32 * S < K8) S = (K8 + 31) / 32;
+  return S;
 }
 
 }  // namespace
 
-// K8 = max(round8(2*band), 8) slots.  Refuses (cudaErrorInvalidValue) a
-// frame wider than one warp's shared memory holds, K8 > 29,056.
+// The int32 words of global scratch a launch of B pairs over K8 slots
+// needs: 0 while a lane's slots fit registers or one warp's shared memory
+// (K8 <= 29,056), else B * 2 * 32 * S.
+extern "C" long long ta_torch_banded_scratch_words(int B, int K8) {
+  const int S = slots_per_lane(K8);
+  return in_global(S) ? static_cast<long long>(B) * 2 * 32 * S : 0;
+}
+
+// K8 = max(round8(2*band), 8) slots; scratch holds
+// ta_torch_banded_scratch_words(B, K8) words (null when that is 0).
 extern "C" int ta_torch_banded_fill(
     const void* ref, const void* qry, const void* ref_len,
     const void* qry_len, int B, int N, int M, int K8, int band, int match,
     int mismatch, int gap, int with_dirs, void* score, void* srow,
-    void* scol, void* dirs, void* stream) {
+    void* scol, void* dirs, void* scratch, void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   if (band < 1 || K8 < 8 || K8 % 8 != 0 || K8 < 2 * band) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // S: the least power of two with 32*S >= K8, or ceil(K8/32) past 8
-  int S = 1;
-  while (32 * S < K8 && S < kMaxRegSlots) S *= 2;
-  if (32 * S < K8) S = (K8 + 31) / 32;
-  if (S > kMaxRegSlots &&
-      static_cast<size_t>(2) * 32 * S * sizeof(int32_t) > kSmemBytes) {
+  const int S = slots_per_lane(K8);
+  if (in_global(S) && scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FillArgs a{
@@ -308,7 +342,8 @@ extern "C" int ta_torch_banded_fill(
       static_cast<const int32_t*>(qry_len),
       B, N, M, K8, band, S, match, mismatch, gap,
       static_cast<int32_t*>(score), static_cast<int32_t*>(srow),
-      static_cast<int32_t*>(scol), static_cast<uint32_t*>(dirs)};
+      static_cast<int32_t*>(scol), static_cast<uint32_t*>(dirs),
+      static_cast<int32_t*>(scratch)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = with_dirs ? dispatch<true>(st, a)
                                   : dispatch<false>(st, a);

@@ -107,8 +107,10 @@ def _configure(lib: ctypes.CDLL) -> None:
             i32, i32, i32,               # match, mismatch, gap
             i32,                         # with_dirs
             ptr, ptr, ptr, ptr,          # score, srow, scol, dirs
+            ptr,                         # scratch
             ptr,                         # stream
         ],
+        "ta_torch_banded_scratch_words": [i32, i32],  # B, K8
         "ta_torch_walk": [
             i32,                         # algo
             ptr, ptr, ptr, ptr,          # dirs, start_row, start_col, score
@@ -136,9 +138,12 @@ def _configure(lib: ctypes.CDLL) -> None:
             ptr, ptr,                    # hlast, flast
             ptr, ptr, ptr, ptr,          # fhb, bhb, nn, go
             i32, i32, i32,               # n, K2, K
+            ptr,                         # state
             ptr,                         # out
             ptr,                         # stream
         ],
+        # n, K2, K, affine
+        "ta_torch_split_reduce_state_words": [i32, i32, i32, i32],
         "ta_torch_compact_events": [
             ptr, ptr,                    # slots, nev
             i32, i32, i32,               # B, ev_max, cap
@@ -163,6 +168,8 @@ def _configure(lib: ctypes.CDLL) -> None:
         fn.restype = i32
         fn.argtypes = argtypes
     lib.ta_torch_rowscan_scratch_words.restype = ctypes.c_longlong
+    lib.ta_torch_banded_scratch_words.restype = ctypes.c_longlong
+    lib.ta_torch_split_reduce_state_words.restype = ctypes.c_longlong
 
 
 def library() -> ctypes.CDLL:

@@ -141,12 +141,16 @@ def _launch_kernel(params, ref_tokens, qry_tokens, ref_len, qry_len,
                               for _ in range(3))
         dirs = (torch.empty(shape, dtype=i32, device=dev)
                 if with_traceback else None)
+        # past K8 = 29,056 the lanes' slots live in a global scratch
+        words = lib.ta_torch_banded_scratch_words(b, k8)
+        scratch = torch.empty(words, dtype=i32, device=dev) if words else None
         rc = lib.ta_torch_banded_fill(
             ref_tokens.data_ptr(), qry_tokens.data_ptr(), ref_len.data_ptr(),
             qry_len.data_ptr(), b, n, m, k8, params.band,
             params.match, params.mismatch, params.gap, int(with_traceback),
             scores.data_ptr(), srow.data_ptr(), scol.data_ptr(),
             dirs.data_ptr() if dirs is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -195,15 +199,20 @@ def fill_banded_bucket(
 
 
 def defined_codes(dirs: torch.Tensor, ref_len: torch.Tensor,
-                  qry_len: torch.Tensor, band: int) -> torch.Tensor:
+                  qry_len: torch.Tensor, band: int,
+                  first_word: int = 0) -> torch.Tensor:
     """Decode banded dirs (MW, B, K8) into per-cell codes (rows, K8, B),
     with -1 at every cell outside the band or past (qlen, rlen): the one
-    comparison both packages' dirs are held to."""
+    comparison both packages' dirs are held to.  dirs may be the word
+    rows from first_word on, a slice that keeps a wide frame's codes to a
+    size that fits memory."""
     mw, b, k8 = dirs.shape
     dev = dirs.device
-    i = torch.arange(1, mw * ROWS_PER_WORD + 1, device=dev)
+    i = torch.arange(first_word * ROWS_PER_WORD + 1,
+                     (first_word + mw) * ROWS_PER_WORD + 1, device=dev)
     kk = torch.arange(k8, device=dev)
-    w = dirs[(i - 1) // ROWS_PER_WORD].permute(0, 2, 1)  # (rows, K8, B)
+    # (rows, K8, B)
+    w = dirs[(i - 1) // ROWS_PER_WORD - first_word].permute(0, 2, 1)
     codes = (w >> (2 * ((i - 1) % ROWS_PER_WORD)).to(w.dtype)[:, None, None]
              ) & 3
     j = (i[:, None] - band + kk[None, :])[..., None]  # (rows, K8, 1)

@@ -54,6 +54,10 @@ GAP = "_"
 LAST_ROWS_KERNEL = "auto"
 
 launches = 0  # split_reduce kernel launches
+# per card: split_reduce's state (its keys and ticket counters), zeroed
+# once; every launch leaves it at 0 again (csrc/split_reduce.cu), so
+# launches on one stream at a time, as the recursion makes them, share it
+_state: dict = {}
 
 
 def fill_last_rows_async(algorithm, params, refs, qrys, rlen, qlen,
@@ -121,13 +125,21 @@ def split_reduce(hlast, flast, fhb, bhb, nn, go):
     if kind != "cuda":
         raise ValueError(f"no split_reduce for device {hlast.device}")
     lib = _build.library()
-    with torch.cuda.device(hlast.device):
-        out = torch.empty((4, k), dtype=torch.int32, device=hlast.device)
+    dev = hlast.device
+    n, k2 = hlast.shape
+    affine = int(flast is not None)
+    with torch.cuda.device(dev):
+        out = torch.empty((4, k), dtype=torch.int32, device=dev)
+        need = lib.ta_torch_split_reduce_state_words(n, k2, k, affine)
+        state = _state.get(dev)
+        if state is None or state.numel() < need:
+            state = _state[dev] = torch.zeros(
+                max(need, 1 << 16), dtype=torch.int32, device=dev)
         rc = lib.ta_torch_split_reduce(
             hlast.data_ptr(), flast.data_ptr() if flast is not None else None,
             fhb.data_ptr(), bhb.data_ptr(), nn.data_ptr(), go.data_ptr(),
-            hlast.shape[0], hlast.shape[1], k, out.data_ptr(),
-            torch.cuda.current_stream(hlast.device).cuda_stream)
+            n, k2, k, state.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"split_reduce kernel launch failed: CUDA error "
                            f"{rc}")

@@ -214,6 +214,78 @@ def band_run_pairs(runs=(2, 19, 31), flanks=(40, 50)) -> list[tuple[str, str]]:
     return pairs
 
 
+def wide_band_bucket(band: int, device):
+    """band_run_pairs with runs of band - 1 insertions and deletions, to
+    the band's edge slots 2*band - 1 and 1, on flanks of 2*band/3 + 400 bp
+    (long enough that a run is worth its gap at 3/-1/-2), as one bucket
+    of two long pairs on `device`.  Both sides of each pair reach band +
+    64 bp, so every slot of the band holds valid cells.  Returns (bucket,
+    [ref, qry, ref_len, qry_len])."""
+    from tpu_align_torch.convert import bucket_to_tensors
+    from tpu_align_torch.io.bucketing import BucketSpec, bucketize
+
+    flank = 2 * band // 3 + 400
+    pairs = band_run_pairs(runs=(band - 1,), flanks=(flank, flank))
+    width = -(-max(len(r) for r, _ in pairs) // 512) * 512
+    (b,) = bucketize(PairDataset.from_pairs(pairs),
+                     BucketSpec(batch_pairs=len(pairs), query_multiple=width,
+                                ref_multiple=width))
+    return b, list(bucket_to_tensors(b, device))
+
+
+# (K, n, kind) of split-reduction inputs that the CUDA kernel's grid
+# splits differently: one subproblem over long rows (a lane of
+# subproblems, 256 row pairs a block step), a K that is no multiple of
+# its 32-lane groups, row counts that leave the last chunk part full,
+# maxima tied across chunks, and widths past the rows
+SPLIT_REDUCE_SHAPES = ((1, 5000, "random"), (1, 5000, "ties"),
+                       (45, 3001, "random"), (45, 3001, "ties"),
+                       (3, 40000, "ties"), (300, 700, "random"),
+                       (45, 3001, "past"))
+
+
+def split_reduce_inputs(k: int, n: int, kind: str = "random",
+                        seed: int = 0):
+    """Hirschberg split-reduction arguments as numpy int32: last rows H
+    and F (n, 2K), fhb, bhb, nn, go (K,).  nn runs over 0..n, 0 at the
+    first subproblem and n at the last.  kind "random": values from a
+    small set (ties everywhere), 10 % NEG entries, an all-NEG subproblem
+    and F rows NEG half the time; "past": the same with widths up to 2n,
+    which B's row index clips to the last row; "ties": every B entry -1
+    and each
+    subproblem's largest total at two rows, a third and two thirds of its
+    width, so the earlier of two maxima in different chunks must win."""
+    neg = -(2**30)
+    rng = np.random.default_rng(seed)
+    go = np.full(k, -4, np.int32)
+    if kind in ("random", "past"):
+        last = rng.integers(-6, 3, (n, 2 * k)).astype(np.int32)
+        last[rng.random((n, 2 * k)) < 0.1] = neg
+        last[:, 2:4] = neg
+        flast = np.where(rng.random((n, 2 * k)) < 0.5, neg,
+                         last - 2).astype(np.int32)
+        top = n if kind == "random" else 2 * n
+        nn = rng.integers(0, top + 1, k).astype(np.int32)
+        nn[0], nn[-1] = 0, top
+        fhb, bhb = (rng.integers(-5, 1, k).astype(np.int32)
+                    for _ in range(2))
+        return last, flast, fhb, bhb, nn, go
+    if kind != "ties":
+        raise ValueError(f"unknown kind {kind!r}")
+    nn = rng.integers(0, n + 1, k).astype(np.int32)
+    nn[0], nn[-1] = 0, n
+    last = np.full((n, 2 * k), -1, np.int32)
+    last[:, 0::2] = rng.integers(-6, 0, (n, k))
+    for s, w in enumerate(nn):
+        for row in (w // 3, 2 * w // 3):
+            if row >= 1:  # F(row) = last[row - 1, 2s]
+                last[row - 1, 2 * s] = 100
+    flast = last.copy()
+    fhb = np.full(k, -10, np.int32)
+    bhb = np.full(k, -1, np.int32)
+    return last, flast, fhb, bhb, nn, go
+
+
 def main_path_bucket(pairs: int = 2048):
     """A full bucket of the main path's shape: the first bucket of
     2 * pairs synthetic 250-bp pairs (seed 42), pairs lanes of 256 x 256."""
