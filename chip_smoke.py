@@ -141,6 +141,19 @@ script exits 1 before the first phase):
                  (every fill, walk and compaction against its plain
                  version, the strings against the oracle, each block
                  re-scored), the seeds covered printed
+  13. mesh    -- the engine on a `pairs` mesh (distributed/), each after
+                 warmup: LNW with device traceback on the 100,000 pairs
+                 over every visible card and over 2 shards of cuda:0,
+                 each byte-identical to the one-device run, the 2-shard
+                 run with 2 x buckets launches of the stagger fill, the
+                 walk and the compaction; ANW and BSW with device
+                 traceback and LNW with host traceback (the stagger fill
+                 and -kernel rowscan) on 2 shards of the first MESH_PAIRS
+                 pairs, the same; global_stats against
+                 numpy; then two processes through a gloo rendezvous
+                 (multihost: initialize, host_shard, renumber, a file
+                 each, global_stats across them), merged and equal to the
+                 one-process text.  Walls printed
 Every timing line gives the kernel's bound (the larger of its bytes over
 the card's HBM rate and its integer operations over its int32 rate) and,
 where one PyTorch call computes the same function, that call's time.  The
@@ -192,6 +205,9 @@ DPX_N = 1 << 20  # triples through each DPX function
 PARITY_PAIRS = 16384
 FUZZ_ENGINE_SEEDS = (5000, 5025)
 FUZZ_SWEEP_SEEDS = (100, 130)
+# the mesh phase's side runs (ANW and BSW device, LNW host traceback, and
+# the two-process run): the first MESH_PAIRS pairs of the main path's set
+MESH_PAIRS = 16384
 # argument sets the DPX device times rotate through, one rotation across
 # all the functions: 16 x 3 x 4 MB, four times the card's 50 MB L2, so a
 # call's inputs are the sets least recently read and come from HBM, and
@@ -837,6 +853,153 @@ def phase_profile(ds, profiled) -> None:
         _profile(engine, ds, label)
 
 
+_MESH_CHILD = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from tpu_align_torch import Algorithm
+from tpu_align_torch.distributed import (
+    global_stats, host_shard, initialize, make_pairs_mesh, renumber)
+from tpu_align_torch.io import parse_pair_file
+from tpu_align_torch.runtime.engine import AlignmentEngine
+
+rdv, rank, pairs, out, want_max, want_cells = sys.argv[1:]
+assert initialize(rdv, 2, int(rank)) == (int(rank), 2)
+shard, ids = host_shard(parse_pair_file(pairs))
+mesh = make_pairs_mesh(["cuda:0"])
+res = AlignmentEngine(Algorithm.LNW, device="cuda", traceback="device",
+                      output="records", mesh=mesh).run(shard)
+renumber(res.results, ids)
+with open(out, "w") as f:
+    f.write("".join(r.block() for r in res.results))
+cells = shard.ref_len.astype(np.int64) * shard.qry_len
+got = global_stats(mesh, res.scores(), cells)
+assert got == (int(want_max), int(want_cells)), got
+dist.destroy_process_group()
+"""
+
+
+def _mesh_run(engine, ds, label: str, want: bytes, fill: str,
+              device_walk: bool) -> float:
+    """warmup, then one timed run with the counts set to 0 just before it;
+    the blocks must equal `want` and each shard's fill (and walk and
+    compaction) must have launched once a bucket.  Returns the wall."""
+    import torch
+
+    engine.warmup(ds)
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = engine.run(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    n = engine.mesh.size * len(engine._buckets_of(ds))
+    walks = n if device_walk else 0
+    got = (counts[fill], counts["walk"], counts["compact"])
+    if got != (n, walks, walks):
+        raise AssertionError(f"mesh: {label}: {fill}, walk, compact "
+                             f"launches {got} != {(n, walks, walks)}")
+    if out.output_bytes() != want:
+        raise AssertionError(f"mesh: {label}: blocks differ from the "
+                             "one-device run")
+    _say("mesh", f"{label}: {len(ds)} pairs, {engine.mesh.size} shard(s), "
+         f"launches {fill} {got[0]}, walk {got[1]}, compact {got[2]}; wall "
+         f"{wall:.4f} s, {len(ds) / wall:.1f} pairs/s")
+    return wall
+
+
+def phase_mesh(ds) -> dict:
+    """The engine on a `pairs` mesh against the one-device run; returns
+    the walls by label."""
+    from tpu_align_torch import Algorithm, AlignmentParams
+    from tpu_align_torch.distributed import (
+        global_stats,
+        make_pairs_mesh,
+        merge_output_files,
+    )
+    from tpu_align_torch.io.dataset import write_pair_file
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+
+    t_phase = time.perf_counter()
+    params = AlignmentParams()
+    meshes = {"every card": make_pairs_mesh(),
+              "2 x cuda:0": make_pairs_mesh(["cuda:0", "cuda:0"])}
+    small = ds.slice(0, MESH_PAIRS)
+    walls = {}
+    for algo, tb, kernel, data in (
+            (Algorithm.LNW, "device", "auto", ds),
+            (Algorithm.ANW, "device", "auto", small),
+            (Algorithm.BSW, "device", "auto", small),
+            (Algorithm.LNW, "host", "auto", small),
+            (Algorithm.LNW, "host", "rowscan", small)):
+        one = AlignmentEngine(algo, params, device=DEVICE, output="blocks",
+                              traceback=tb, kernel=kernel)
+        fill = _fill_kind(one)
+        label = f"{algo.value}-{tb}" + (
+            "-rowscan" if kernel == "rowscan" else "") + f" {len(data)}"
+        want = one.run(data)
+        walls[f"{label} one device"] = _mesh_run(
+            one, data, f"{label} one device", want.output_bytes(), fill,
+            tb == "device")
+        for name, mesh in meshes.items():
+            if data is small and name == "every card":
+                continue
+            engine = AlignmentEngine(algo, params, device=DEVICE,
+                                     output="blocks", traceback=tb,
+                                     kernel=kernel, mesh=mesh)
+            walls[f"{label} {name}"] = _mesh_run(
+                engine, data, f"{label} {name}", want.output_bytes(), fill,
+                tb == "device")
+        if algo is Algorithm.ANW:
+            cells = small.ref_len.astype(np.int64) * small.qry_len
+            got = global_stats(meshes["2 x cuda:0"], want.scores(), cells)
+            if got != (int(want.scores().max()), int(cells.sum())):
+                raise AssertionError(f"mesh: global_stats {got}")
+            _say("mesh", f"global_stats over 2 shards: max {got[0]}, "
+                 f"cells {got[1]}, equal to numpy's")
+    one = AlignmentEngine(Algorithm.LNW, params, device=DEVICE,
+                          traceback="device", output="records")
+    want = one.run(small)
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = os.path.join(tmp, "pairs.txt")
+        write_pair_file(pairs, list(small.pairs()))
+        outs = [os.path.join(tmp, f"host{r}.txt") for r in range(2)]
+        cells = int((small.ref_len.astype(np.int64) * small.qry_len).sum())
+        env = {**os.environ, "PYTHONPATH": REPO}
+        for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(k, None)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MESH_CHILD, f"file://{tmp}/rdv", str(r),
+             pairs, outs[r], str(int(want.scores().max())), str(cells)],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            errs = [p.communicate(timeout=300)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+        walls["two processes"] = time.perf_counter() - t0
+        if [p.returncode for p in procs] != [0, 0]:
+            raise AssertionError("mesh: two-process run failed: "
+                                 + " | ".join(e[-2000:] for e in errs))
+        merged = os.path.join(tmp, "merged.txt")
+        merge_output_files(outs, merged)
+        with open(merged) as f:
+            if f.read() != want.output_text():
+                raise AssertionError("mesh: the two processes' merged "
+                                     "output differs from one process's")
+    _say("mesh", f"two processes (gloo, file rendezvous) over "
+         f"{MESH_PAIRS} pairs on cuda:0: merged output equal to the "
+         f"one-process text; wall {walls['two processes']:.2f} s, "
+         "process start-up included")
+    _say("mesh", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return walls
+
+
 def _mutated_pair(rnd, qlen: int, rlen: int) -> tuple[str, str]:
     """scripts/bench_long.py's generator: the reference is random ACGT, the
     query the reference tiled to qlen with 10 % point mutations."""
@@ -1396,14 +1559,14 @@ def device_ms(fn, reps: int = TIMING_REPS) -> float:
     launch cost between calls (which CUDA events over back-to-back calls
     of a short kernel also count).  A mean a record, not a total over
     reps: after a profiled run of the engine the profiler drops some
-    records of later sessions, and sometimes all of a session's, which is
-    then run once more; a second empty session raises."""
+    records of later sessions, and sometimes all of two sessions' in a
+    row, so an empty session is run again; a fourth empty one raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1413,7 +1576,7 @@ def device_ms(fn, reps: int = TIMING_REPS) -> float:
         if ops:
             return sum(e.self_device_time_total / e.count for e in ops) / 1e3
         _say("timing", "the profiler recorded no device activity; "
-             + ("profiling again" if attempt == 0 else "giving up"))
+             + ("profiling again" if attempt < 3 else "giving up"))
     raise RuntimeError("the profiler recorded no device activity")
 
 
@@ -2025,6 +2188,7 @@ def main(argv=None) -> int:
     phase_profile(ds, profiled)
     phase_parity()
     phase_fuzz()
+    phase_mesh(ds)
     if "jax" in sys.modules or "tpu_align" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     import torch

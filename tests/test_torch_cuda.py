@@ -15,8 +15,10 @@ Hirschberg path as a whole, the
 DPX op layer (csrc/dpx_apply.cu, all 36 functions) and the s16x2
 experiment's core (csrc/s16x2_core.cu, both variants); then the engine as
 a whole: hw_parity's 14 configurations over 1,024 mixed-length pairs
-against the oracle, a few seeds of each fuzzer, and the all-paths goldens
-through `-all-paths -device cuda`.
+against the oracle, a few seeds of each fuzzer, the all-paths goldens
+through `-all-paths -device cuda`, and the engine on a 2-shard mesh of the
+card (after warmup) against the one-device run, launch counts included;
+the mesh of every visible card, global_stats, and -mesh beyond them.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 The module imports only the port.  The card's machine has no JAX, and
@@ -969,3 +971,68 @@ def test_fuzzers_on_the_card(cuda_device, fuzzer, seeds):
     assert all(rec["launches"][k] for k in ("stagger_fill", "banded_fill",
                                             "rowscan_fill", "walk",
                                             "compact"))
+
+
+@pytest.mark.parametrize("algo,traceback", [
+    (Algorithm.LNW, "device"), (Algorithm.ANW, "device"),
+    (Algorithm.BSW, "device"), (Algorithm.LNW, "host"),
+], ids=lambda c: getattr(c, "value", c))
+def test_mesh_engine_on_the_card_matches_one_device(cuda_device, algo,
+                                                    traceback):
+    """A 2-shard mesh of the one card, after warmup: 4,096 pairs in
+    buckets of up to 2,048 (the mutations' length spread makes three),
+    each shard's fill (and walk and compaction) launched once a bucket,
+    the blocks byte-identical to the one-device run."""
+    from tpu_align_torch.distributed import make_pairs_mesh
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+    from tpu_align_torch.runtime.profiler import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    ds = synthetic_dataset(4096, uniform_len=250, seed=42)
+    one = AlignmentEngine(algo, device="cuda", traceback=traceback,
+                          output="blocks").run(ds)
+    mesh = make_pairs_mesh([cuda_device, cuda_device])
+    assert mesh.devices == (torch.device("cuda", 0),) * 2
+    engine = AlignmentEngine(algo, device="cuda", traceback=traceback,
+                             output="blocks", mesh=mesh)
+    buckets = engine._buckets_of(ds)
+    assert buckets[0].batch == 2048
+    assert all(b.batch % 16 == 0 for b in buckets)
+    engine.warmup(ds)
+    reset_launch_counts()
+    out = engine.run(ds)
+    counts = launch_counts()
+    fill = "banded_fill" if algo.is_banded else "stagger_fill"
+    walks = 2 * len(buckets) if traceback == "device" else 0
+    assert (counts[fill], counts["walk"], counts["compact"]) == (
+        2 * len(buckets), walks, walks)
+    assert out.output_bytes() == one.output_bytes()
+
+
+def test_mesh_of_every_card_and_global_stats(cuda_device, tmp_path,
+                                             capsys):
+    from tpu_align_torch.distributed import (
+        fill_sharded,
+        global_stats,
+        make_pairs_mesh,
+    )
+
+    mesh = make_pairs_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    b = main_path_bucket()
+    scores = fill_sharded(make_pairs_mesh(["cuda", "cuda"]), Algorithm.LSW,
+                          PARAMS, b.ref_tokens, b.qry_tokens, b.ref_len,
+                          b.qry_len, with_traceback=False)[0]
+    assert all(s.device.type == "cuda" for s in scores)
+    host = torch.cat([s.cpu() for s in scores]).numpy()
+    cells = b.ref_len.astype(np.int64) * b.qry_len
+    assert global_stats(make_pairs_mesh(["cuda", "cuda"]), scores,
+                        cells) == (int(host.max()), int(cells.sum()))
+    n = torch.cuda.device_count() + 1
+    path = tmp_path / "pairs.txt"
+    path.write_text("0\nACGT\nAGT\n")
+    assert cli_main(["-pairs", str(path), "-mesh", str(n)]) == 2
+    assert f"-mesh {n}: only {n - 1} devices visible" in \
+        capsys.readouterr().err

@@ -189,46 +189,6 @@ def test_cli_scores_only_and_stdout(tmp_path, capsys):
     assert capsys.readouterr().out == "0 | 7\n\n\n\n1 | 1\n\n\n\n"
 
 
-@pytest.mark.parametrize("flags", [
-    ["-mesh", "2"],
-], ids=lambda f: " ".join(f))
-def test_cli_exits_2_on_unported_flags(tmp_path, capsys, flags):
-    path = tmp_path / "pairs.txt"
-    write_pair_file(path, [("ACGT", "AGT")])
-    assert torch_cli(["-pairs", str(path), "-device", "cpu", *flags]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("kwargs", [
-    {"mesh": "pairs-mesh"},
-], ids=lambda k: ",".join(f"{a}={v}" for a, v in k.items()))
-def test_engine_refuses_unported_options(kwargs):
-    kwargs = {"algorithm": Algorithm.LNW, **kwargs}
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        AlignmentEngine(kwargs.pop("algorithm"), device="cpu", **kwargs)
-
-
-@pytest.mark.parametrize("kwargs,flags,item", [
-    ({"mesh": "pairs-mesh"}, ["-mesh", "2"], 4),
-], ids=["mesh"])
-@pytest.mark.parametrize("surface", ["engine", "cli"])
-def test_refusals_name_their_roadmap_items(tmp_path, capsys, surface, kwargs,
-                                           flags, item):
-    """The mesh is Queue A item 4; the CLI passes the engine's message
-    on."""
-    want = f"ROADMAP.md Queue A item {item})"
-    if surface == "engine":
-        with pytest.raises(ValueError) as err:
-            AlignmentEngine(Algorithm.LNW, device="cpu", **kwargs)
-        assert want in str(err.value)
-    else:
-        path = tmp_path / "pairs.txt"
-        write_pair_file(path, [("ACGT", "AGT")])
-        assert torch_cli(["-pairs", str(path), "-device", "cpu",
-                          *flags]) == 2
-        assert want in capsys.readouterr().err
-
-
 def test_engine_alt_params_match_jax_engine():
     params = AlignmentParams(match=5, mismatch=-2, gap=-3)
     rng = random.Random(11)

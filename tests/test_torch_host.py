@@ -8,15 +8,18 @@ oracle's fills and align_pair blocks for the four aligners, synthetic_dataset(se
 42), results_from_arrays, the direction codes and parameters, and the
 port's own native binding, which builds native/tpualign.cpp into build/
 with an atomic rename.  The modules the port copies whole (the oracle,
-verify/, utils/reorder.py) must be their originals' code, docstrings
-aside; tests/test_torch_oracle.py and test_torch_verify.py run them
-against the originals.
+verify/, utils/reorder.py, io/fasta.py, oracle/lcs.py, utils/pretty.py and
+utils/timing_analysis.py) must be their originals' code, docstrings aside;
+tests/test_torch_oracle.py and test_torch_verify.py run the oracle and
+verify/ against the originals, and the tests at the end of this file the
+other four.
 """
 
 import ast
 import concurrent.futures
 import ctypes
 import dataclasses
+import json
 import random
 from pathlib import Path
 
@@ -27,26 +30,35 @@ import tpu_align.core.directions as jdirs
 import tpu_align.core.params as jp
 import tpu_align.core.result as jresult
 import tpu_align.io as jio
+import tpu_align.io.fasta as jfasta
+import tpu_align.oracle as joracle_pkg
 import tpu_align.oracle.api as joracle
 import tpu_align.oracle.scalar as jscalar
 import tpu_align.oracle.vectorized as jvectorized
+import tpu_align.utils as jutils
+import tpu_align.utils.pretty as jpretty
 import tpu_align.utils.synthetic as jsynth
+import tpu_align.utils.timing_analysis as jtiming
 import tpu_align_torch.core.directions as pdirs
 import tpu_align_torch.io as pio
+import tpu_align_torch.oracle as poracle_pkg
 import tpu_align_torch.oracle.scalar as pscalar
 import tpu_align_torch.oracle.vectorized as pvectorized
+import tpu_align_torch.utils as putils
 from tpu_align_torch import Algorithm, AlignmentParams, native
 from tpu_align_torch.core.result import results_from_arrays
 from tpu_align_torch.io import (
     BucketSpec,
     PairDataset,
     bucketize,
+    fasta,
     parse_pair_file,
     parse_pair_text,
     write_pair_file,
 )
 from tpu_align_torch.native import binding
 from tpu_align_torch.oracle.api import align_pair
+from tpu_align_torch.utils import pretty, timing_analysis
 from tpu_align_torch.utils.hostmem import tune_malloc_for_large_buffers
 from tpu_align_torch.utils.synthetic import random_dna as synthetic_random_dna
 from tpu_align_torch.utils.synthetic import synthetic_dataset
@@ -249,13 +261,16 @@ def _code(path: Path, package: str) -> str:
 # modules the port copies whole from the JAX package, under the same path
 COPIES = ["oracle/scalar.py", "oracle/vectorized.py", "oracle/traceback.py",
           "oracle/api.py", "verify/__init__.py", "verify/independent.py",
-          "utils/reorder.py"]
+          "utils/reorder.py", "io/fasta.py", "oracle/lcs.py",
+          "utils/pretty.py", "utils/timing_analysis.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_modules_are_their_originals(rel):
     """Code for code, docstrings aside: the oracle (tie policies, batched
-    fills, every-path enumeration, align_batch), verify/ and reorder."""
+    fills, every-path enumeration, align_batch, lcs), verify/, reorder,
+    FASTA ingestion, the matrix printer and the phase analysis (whose
+    usage line names its own package, which _code writes as PKG)."""
     repo = Path(__file__).resolve().parent.parent
     assert _code(repo / "tpu_align_torch" / rel, "tpu_align_torch") == \
         _code(repo / "tpu_align" / rel, "tpu_align")
@@ -280,3 +295,106 @@ def test_random_dna_draws_the_tests_sequences():
         assert [synthetic_random_dna(a, lo, hi, alphabet)
                 for _ in range(20)] == [random_dna(b, lo, hi, alphabet)
                                         for _ in range(20)]
+
+
+def test_package_exports_match_jax():
+    """oracle/ and utils/ export what the JAX package's __init__s do
+    (utils also synthetic_dataset's neighbours mutate and
+    reorder_output)."""
+    assert set(jutils.__all__) <= set(putils.__all__)
+    assert set(joracle_pkg.__all__) <= set(poracle_pkg.__all__)
+    for name in jutils.__all__:
+        assert callable(getattr(putils, name)), name
+    for name in joracle_pkg.__all__:
+        assert callable(getattr(poracle_pkg, name)), name
+
+
+FASTA = (b">r1 first read\nACGT\nacg\r\n>q1\r\nAGT\n\n>r2\rGGCA\n"
+         b">q2\n0123\n>unpaired\nT\n")
+
+
+def test_fasta_ingestion_matches_jax(tmp_path):
+    reads = tmp_path / "reads.fa"
+    reads.write_bytes(FASTA)
+    assert fasta.read_fasta(str(reads)) == jfasta.read_fasta(str(reads))
+    ours, theirs = tmp_path / "port.txt", tmp_path / "jax.txt"
+    assert fasta.fasta_to_pairfile(str(reads), str(ours)) == \
+        jfasta.fasta_to_pairfile(str(reads), str(theirs)) == 2
+    assert ours.read_bytes() == theirs.read_bytes()
+    # the pair parser translates the digit alphabet
+    assert list(parse_pair_file(ours).pairs()) == [("ACGTACG", "AGT"),
+                                                   ("GGCA", "ATCG")]
+    queries = tmp_path / "queries.fa"
+    queries.write_bytes(b">a\nAC\n>b\nGT\n>c\nTT\n>d\nA\n>e\nC\n")
+    assert fasta.fasta_to_pairfile(str(reads), str(ours), str(queries)) \
+        == jfasta.fasta_to_pairfile(str(reads), str(theirs),
+                                    str(queries)) == 5
+    assert ours.read_bytes() == theirs.read_bytes()
+    short = tmp_path / "short.fa"
+    short.write_bytes(b">a\nAC\n")
+    bad = {"before": b"ACGT\n>a\nA\n", "empty": b">a\n>b\nAC\n"}
+    for mod in (fasta, jfasta):
+        with pytest.raises(ValueError, match="counts differ"):
+            mod.fasta_to_pairfile(str(reads), str(ours), str(short))
+        for name, data in bad.items():
+            path = tmp_path / f"{name}.fa"
+            path.write_bytes(data)
+            with pytest.raises(ValueError):
+                mod.read_fasta(str(path))
+    scores = np.array([5, -1, 3, 3, 0])
+    assert fasta.score_checksum(scores) == \
+        jfasta.score_checksum(scores[::-1]) == \
+        fasta.score_checksum(list(scores[::-1]))
+
+
+def test_lcs_matches_jax():
+    rng = random.Random(0x1C5)
+    pairs = ([(random_dna(rng, 0, 9, "AC"), random_dna(rng, 0, 9, "AC"))
+              for _ in range(30)]
+             + [(random_dna(rng, 1, 60), random_dna(rng, 1, 60))
+                for _ in range(10)])
+    for ref, qry in pairs:
+        np.testing.assert_array_equal(poracle_pkg.lcs_matrix(ref, qry),
+                                      joracle_pkg.lcs_matrix(ref, qry))
+        for kw in ({"all_paths": False}, {"dedup": True}, {}):
+            if len(ref) > 9 and "all_paths" not in kw:
+                continue  # every co-optimal path of long pairs: too many
+            assert poracle_pkg.lcs(ref, qry, **kw) == \
+                joracle_pkg.lcs(ref, qry, **kw), \
+                (ref, qry, kw)
+
+
+@pytest.mark.parametrize("algo", [Algorithm.LNW, Algorithm.ANW],
+                         ids=lambda a: a.value)
+def test_matrix_printer_matches_jax(algo, capsys):
+    ref, qry = "GATTACA", "GCATGCT"
+    fill = pvectorized.fill_vectorized(algo, AlignmentParams(), ref, qry)
+    jfill = jvectorized.fill_vectorized(jp.Algorithm(algo.value),
+                                        jp.AlignmentParams(), ref, qry)
+    for color in (True, False):
+        assert pretty.format_matrix(fill.h, ref, qry, color=color) == \
+            jpretty.format_matrix(jfill.h, ref, qry, color=color)
+        pretty.print_fill(fill, ref, qry, color=color)
+        ours = capsys.readouterr().out
+        jpretty.print_fill(jfill, ref, qry, color=color)
+        assert ours == capsys.readouterr().out
+        assert ("(E)" in ours) == algo.is_affine
+
+
+def test_timing_analysis_matches_jax(tmp_path, capsys):
+    runs = tmp_path / "runs.jsonl"
+    rows = [{"label": "lnw-device", "phases": {"kernel": 0.0125,
+                                               "backtrack": 0.5}},
+            {"label": "fill-only", "gcups": 3.5},
+            {"phases": {"memmgmt": 0.001, "printing": 0.02, "extra": 1.0}}]
+    runs.write_text("\n".join(json.dumps(r) for r in rows) + "\n\n")
+    loaded = timing_analysis.load_runs(str(runs))
+    assert loaded == jtiming.load_runs(str(runs)) == rows
+    assert timing_analysis.analyze(loaded) == jtiming.analyze(loaded)
+    assert timing_analysis.plot(loaded[1:2], str(tmp_path / "a.png")) is \
+        jtiming.plot(loaded[1:2], str(tmp_path / "b.png")) is False
+    assert timing_analysis.main([str(runs)]) == 0
+    assert capsys.readouterr().out == timing_analysis.analyze(loaded) + "\n"
+    assert timing_analysis.main([]) == 2
+    assert "python -m tpu_align_torch.utils.timing_analysis" in \
+        capsys.readouterr().err

@@ -2,8 +2,9 @@
 machine has no JAX, and the port keeps its own copy of every host layer.
 
 Subprocesses block `jax`, `jaxlib` and `tpu_align` (sys.modules[name] =
-None makes every import of it fail), import the port's package, engine
-and CLI, and align pairs on the CPU through every path.  A static scan
+None makes every import of it fail), import the port's package, engine,
+CLI, distributed layer and host copies, and align pairs on the CPU
+through every path, a mesh of CPU shards too.  A static scan
 holds every module of the package, and chip_smoke.py, to the same rule.
 """
 
@@ -29,6 +30,12 @@ sys.modules["jaxlib"] = None
 sys.modules["tpu_align"] = None
 import tpu_align_torch
 import tpu_align_torch.cli
+import tpu_align_torch.distributed
+import tpu_align_torch.io.fasta
+import tpu_align_torch.oracle.lcs
+import tpu_align_torch.utils.pretty
+import tpu_align_torch.utils.timing_analysis
+from tpu_align_torch.distributed import make_pairs_mesh
 from tpu_align_torch.io import PairDataset
 from tpu_align_torch.oracle.api import align_pair
 from tpu_align_torch.runtime.engine import AlignmentEngine
@@ -37,6 +44,10 @@ ds = PairDataset.from_pairs([("ACGT", "AGT"), ("GATTACA", "GCATGCT"),
 out = AlignmentEngine(tpu_align_torch.Algorithm.LNW, device="cpu",
                       output="blocks").run(ds)
 sys.stdout.write(out.output_text())
+mesh = AlignmentEngine(tpu_align_torch.Algorithm.LNW, device="cpu",
+                       output="blocks", traceback="device",
+                       mesh=make_pairs_mesh(["cpu", "cpu"])).run(ds)
+assert mesh.output_text() == out.output_text()
 assert align_pair(tpu_align_torch.Algorithm.LNW,
                   tpu_align_torch.AlignmentParams(), "ACGT", "AGT").score == 7
 assert sys.modules["jax"] is None and sys.modules["tpu_align"] is None

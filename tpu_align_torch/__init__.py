@@ -10,21 +10,23 @@ and Hirschberg's split reduction as hand-written sm_90a CUDA kernels
 (csrc/stagger_fill.cu, banded_fill.cu, stagger_walk.cu, rowscan_fill.cu,
 split_reduce.cu; the s16x2 experiment in s16x2_core.cu, the DPX op layer
 in dpx.cuh).  On CPU tensors every kernel wrapper runs its plain PyTorch
-version instead.
+version instead.  A `pairs` mesh (distributed/) runs each bucket's shards
+on several devices, and multi-process runs split a dataset by pair id.
 
 The package imports `torch` and nothing of `jax` or of the JAX package:
 it keeps its own copies of the host layers it needs, each under the
 relative path of its original, so a reader finds the counterpart:
 
   core/        Algorithm, AlignmentParams, direction codes, results
-  io/          pair-file parsing, length bucketing
+  io/          pair-file parsing, length bucketing, FASTA ingestion
   native/      its own ctypes binding to native/tpualign.cpp, built by g++
                into build/ at first use
   oracle/      the NumPy reference aligners (one path or every co-optimal
-               path; the cross-pair batched fill)
+               path; the cross-pair batched fill; the LCS)
   verify/      golden generation, output re-scoring, independent scores
                (scipy's Bellman-Ford, exhaustive enumeration)
-  utils/       synthetic workloads, host allocator tuning, block order
+  utils/       synthetic workloads, host allocator tuning, block order,
+               the DP-matrix printer, the phase-breakdown analysis
   ops/         the DPX op layer: plain versions of the 36 intrinsics, and
                csrc/dpx.cuh mapping each onto its sm_90 instruction
   kernels/     the stagger, banded and row-sweep fill wrappers, their
@@ -33,8 +35,12 @@ relative path of its original, so a reader finds the counterpart:
                walk's move semantics (decide_step), plain walk and
                compaction, dispatch and replay glue; the kernel wrappers;
                Hirschberg
-  runtime/     batch engine (all-paths on the host), phase profiler and
-               the kernels' launch counts
+  runtime/     batch engine (all-paths on the host; warmup; a mesh),
+               phase profiler and the kernels' launch counts
+  distributed/ data parallelism over a `pairs` mesh of devices (each
+               shard's kernels on its own device, joined on the host;
+               run stats all-reduced) and multi-process runs over a gloo
+               group (host_shard, renumber, merge_output_files)
   scripts/     hw_parity: the engine's full text against the oracle over
                a mixed-length set; fuzz_engine, fuzz_sweep: fixed seed
                ranges through the engine and through every kernel;

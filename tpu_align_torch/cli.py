@@ -5,8 +5,8 @@ equivalent), plus -device (default cuda).  Runs the four aligners
 (-algorithm lnw, lsw, anw, bsw) with -traceback host, device or
 hirschberg, and -kernel auto, stagger or rowscan; -all-paths prints
 every co-optimal path (lnw, lsw, bsw; computed on the host, as in the JAX
-package).  -mesh is not ported yet: it exits with code 2 and names its
-ROADMAP.md item.
+package).  -mesh N runs each bucket data-parallel over N devices of
+-device's type (N CPU shards with -device cpu).
 
 Usage:
     python -m tpu_align_torch -pairs input.txt -match 3 -mismatch -1 -gap -2
@@ -18,7 +18,10 @@ import argparse
 import sys
 import time
 
+import torch
+
 from tpu_align_torch.core.params import Algorithm, AlignmentParams
+from tpu_align_torch.distributed import make_pairs_mesh
 from tpu_align_torch.io.bucketing import BucketSpec
 from tpu_align_torch.io.dataset import parse_pair_file
 from tpu_align_torch.runtime.engine import AlignmentEngine
@@ -82,11 +85,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-checkpoint-dir", default=None,
                    help="persist per-batch results; re-runs resume from here")
     p.add_argument("-mesh", type=int, default=0, metavar="N",
-                   help="data-parallel over N devices (still to port; 0)")
+                   help="run data-parallel over N local devices (0 = single "
+                        "device; -1 = all).  Fills -- and device walks -- "
+                        "run a shard of each bucket on each device; output "
+                        "is byte-identical to the single-device run.  With "
+                        "-device cpu, N CPU shards")
     p.add_argument("-device", default="cuda",
                    help="torch device: cuda, cuda:N, or cpu (every "
                         "kernel's plain PyTorch version)")
     return p
+
+
+def _mesh(n: int, device: str):
+    """The -mesh N mesh on -device's type: None for 0; N (-1: every
+    visible) CUDA devices, or N CPU shards (-1: the one CPU device)."""
+    if not n:
+        return None
+    if torch.device(device).type == "cpu":
+        return make_pairs_mesh(["cpu"] * (1 if n < 0 else n))
+    if n < 0:
+        return make_pairs_mesh()
+    try:
+        return make_pairs_mesh([torch.device("cuda", i) for i in range(n)])
+    except ValueError as e:
+        raise ValueError(f"-mesh {n}: {e}") from None
 
 
 def main(argv=None) -> int:
@@ -102,7 +124,13 @@ def main(argv=None) -> int:
               "python/LinearNeedlemanWunsch.py:98-191) and lsw/bsw "
               "(BACKTRACK_ALL), not anw", file=sys.stderr)
         return 2
+    if args.mesh and (args.all_paths or args.traceback == "hirschberg"):
+        print("-mesh covers the bucketed kernel path; -all-paths and "
+              "-traceback hirschberg run unsharded -- drop -mesh for "
+              "those modes", file=sys.stderr)
+        return 2
     try:
+        mesh = _mesh(args.mesh, args.device)
         engine = AlignmentEngine(
             algorithm, params,
             bucket_spec=BucketSpec(batch_pairs=args.batch_pairs),
@@ -113,7 +141,7 @@ def main(argv=None) -> int:
             traceback=args.traceback,
             walker=args.walker,
             output=output,
-            mesh=args.mesh or None,
+            mesh=mesh,
             stripe_s=args.stripe or None,
             device=args.device,
         )

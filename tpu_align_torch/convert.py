@@ -22,12 +22,18 @@ def bucket_to_tensors(bucket: Bucket, device) -> tuple[torch.Tensor, ...]:
     int32, qry_len (B,) int32) on `device`.  Raw uint8 tokens cross the
     bus as they are; on CUDA through pinned staging copies enqueued on the
     current stream, so the upload never waits for earlier fills."""
+    return arrays_to_tensors(bucket.ref_tokens, bucket.qry_tokens,
+                             bucket.ref_len, bucket.qry_len, device)
+
+
+def arrays_to_tensors(ref_tokens, qry_tokens, ref_len, qry_len,
+                      device) -> tuple[torch.Tensor, ...]:
+    """bucket_to_tensors of a bucket's four arrays (numpy, or anything
+    np.asarray takes)."""
     device = torch.device(device)
     out = []
-    for arr, dtype in ((bucket.ref_tokens, np.uint8),
-                       (bucket.qry_tokens, np.uint8),
-                       (bucket.ref_len, np.int32),
-                       (bucket.qry_len, np.int32)):
+    for arr, dtype in ((ref_tokens, np.uint8), (qry_tokens, np.uint8),
+                       (ref_len, np.int32), (qry_len, np.int32)):
         t = torch.from_numpy(np.ascontiguousarray(arr, dtype))
         if device.type != "cpu":
             t = t.pin_memory().to(device, non_blocking=True)

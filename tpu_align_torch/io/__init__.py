@@ -1,5 +1,6 @@
-"""Dataset layer: pair-file parsing and length bucketing (the port's
-copies of tpu_align/io/dataset.py and bucketing.py)."""
+"""Dataset layer: pair-file parsing, length bucketing and FASTA ingestion
+(the port's copies of tpu_align/io/dataset.py, bucketing.py and
+fasta.py)."""
 
 from tpu_align_torch.io.bucketing import Bucket, BucketSpec, bucketize
 from tpu_align_torch.io.dataset import (

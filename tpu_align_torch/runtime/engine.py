@@ -52,26 +52,20 @@ from tpu_align_torch.oracle.api import align_pair
 from tpu_align_torch.oracle.traceback import traceback_pair
 from tpu_align_torch.oracle.vectorized import fill_vectorized_batch
 from tpu_align_torch.utils.hostmem import tune_malloc_for_large_buffers
-from tpu_align_torch.convert import bucket_to_tensors, fill_to_numpy
-from tpu_align_torch.kernels import fill as rowscan
-from tpu_align_torch.kernels.banded import fill_banded_bucket_async
-from tpu_align_torch.kernels.stagger import STRIPE_S, fill_stagger_bucket_async
+from tpu_align_torch.convert import fill_to_numpy
+from tpu_align_torch.distributed import sharding
+from tpu_align_torch.kernels.stagger import STRIPE_S
 from tpu_align_torch.runtime.profiler import PhaseTimer
 from tpu_align_torch.traceback.device import (
     bucket_arrays_from_finalized,
     bucket_blocks_from_finalized,
-    device_walk_dispatch_events,
+    copy_to_host,
     finalize_any,
 )
 from tpu_align_torch.traceback.host import (
     traceback_bucket,
     traceback_bucket_arrays,
 )
-
-
-def _not_ported(what: str, item: int) -> ValueError:
-    return ValueError(f"{what} is not ported to tpu_align_torch yet "
-                      f"(ROADMAP.md Queue A item {item})")
 
 
 @dataclasses.dataclass
@@ -190,9 +184,18 @@ class AlignmentEngine:
 
     Takes the JAX engine's arguments plus an explicit `device` ("cuda",
     "cuda:N" or "cpu"; a CPU device runs every kernel's plain PyTorch
-    version, so there is no interpret mode).  A mesh is not ported yet: it
-    raises ValueError naming its ROADMAP.md item.  traceback="device" needs
+    version, so there is no interpret mode).  traceback="device" needs
     the stagger fill (or BSW), as in the JAX engine.
+
+    mesh (distributed.make_pairs_mesh) runs each bucket data-parallel over
+    the mesh's devices, which must be of `device`'s type: bucket batches
+    divide evenly across the shards (shard_bucket_spec), each shard's
+    fill -- and device walk and compaction -- runs on its own device, and
+    the host joins the shards (their dirs for the host walk, their events
+    or move streams for the replay), so the output is byte-identical to
+    the one-device run.  Without a mesh the engine runs the same path on
+    a mesh of one shard, `device`, which takes each bucket whole.
+    Hirschberg and all-paths refuse a mesh.
 
     local_mode (local aligners and LNW): "single" follows the CUDA host
     semantics (one path a pair); "all" enumerates every co-optimal path
@@ -261,8 +264,6 @@ class AlignmentEngine:
             raise ValueError(f"unknown walker {walker!r}")
         if output not in ("records", "blocks"):
             raise ValueError(f"unknown output mode {output!r}")
-        if mesh is not None:
-            raise _not_ported("mesh", 4)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -274,6 +275,21 @@ class AlignmentEngine:
         self.algorithm = algorithm
         self.params = params or AlignmentParams()
         self.bucket_spec = bucket_spec or BucketSpec()
+        if mesh is not None:
+            if traceback == "hirschberg" or local_mode == "all":
+                raise ValueError(
+                    "mesh covers the bucketed kernel path; hirschberg and "
+                    "all-paths modes run their own fills -- use host_shard "
+                    "to split those workloads across processes instead")
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"mesh devices {list(map(str, mesh.devices))} are not "
+                    f"of the engine's device type ({self.device})")
+            self.bucket_spec = sharding.shard_bucket_spec(
+                mesh, self.bucket_spec)
+        else:
+            mesh = sharding.PairsMesh((self.device,))
+        self.mesh = mesh
         self.with_traceback = with_traceback
         self.walker = walker
         # the device walk needs dirs; scores-only runs take the host path
@@ -299,25 +315,18 @@ class AlignmentEngine:
                           engine="scalar", local_mode=self.local_mode)
 
     def _dispatch(self, b: Bucket):
-        """Upload one bucket's raw tokens and enqueue its fill -- and, with
-        device traceback, its walk and compaction.  Returns a WalkHandle
-        for device traceback, else (outs, done): on CUDA, outs are pinned
-        host tensors that an async D2H fills and `done` the event that
-        marks the copies complete; on CPU, the fill's own tensors and
-        None."""
-        tensors = bucket_to_tensors(b, self.device)
-        if self.algorithm.is_banded:
-            outs = fill_banded_bucket_async(
-                self.algorithm, self.params, *tensors,
-                with_traceback=self.with_traceback)
-        elif self.kernel == "rowscan":
-            outs = rowscan.fill_bucket_async(
-                self.algorithm, self.params, *tensors,
-                with_traceback=self.with_traceback)
-        else:
-            outs = fill_stagger_bucket_async(
-                self.algorithm, self.params, *tensors,
-                with_traceback=self.with_traceback, stripe_s=self.stripe_s)
+        """Upload one bucket's raw tokens shard by shard and enqueue each
+        shard's fill -- and, with device traceback, its walk and
+        compaction -- on its own device (distributed/sharding.py).  Returns
+        a ShardedWalk for device traceback, else a list of (outs, done),
+        one a shard: on CUDA, outs are pinned host tensors that an async
+        D2H fills and `done` the event that marks the copies complete; on
+        CPU, the fill's own tensors and None."""
+        outs = sharding.fill_sharded(
+            self.mesh, self.algorithm, self.params,
+            b.ref_tokens, b.qry_tokens, b.ref_len, b.qry_len,
+            with_traceback=self.with_traceback, kernel=self.kernel,
+            stripe_s=self.stripe_s)
         if self.device_tb:
             scores, srow, scol, dirs = outs
             # global start cells are the lengths, which the host knows
@@ -325,20 +334,37 @@ class AlignmentEngine:
                       else (scores,))
             # the dirs die here, after the walk and compaction were queued
             # behind them on the same stream
-            return device_walk_dispatch_events(
-                self.algorithm, self.params, dirs, srow, scol, scores,
-                self.stripe_s, walker=self.walker, extras=extras)
-        if self.device.type == "cpu":
-            return outs, None
-        host = tuple(
-            None if t is None else
-            torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            .copy_(t, non_blocking=True)
-            for t in outs
-        )
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return host, done
+            return sharding.walk_sharded_dispatch(
+                self.mesh, self.algorithm, self.params, dirs, srow, scol,
+                scores, self.stripe_s, extras=extras, walker=self.walker)
+        jobs = []
+        for k, dev in enumerate(self.mesh.devices):
+            shard = tuple(None if o is None else o[k] for o in outs)
+            with sharding.on_device(dev):
+                jobs.append(self._to_host(shard, dev))
+        return jobs
+
+    @staticmethod
+    def _to_host(outs, device) -> tuple:
+        """(host tensors, done) of a fill's outputs (dirs may be None)."""
+        host, done = copy_to_host([t for t in outs if t is not None],
+                                   device)
+        return host + (None,) * (len(outs) - len(host)), done
+
+    def _wait_fill(self, jobs) -> tuple:
+        """Wait for a bucket's fill copies and join its shards along the
+        batch axis (one shard: its tensors as they are)."""
+        for _, done in jobs:
+            if done is not None:
+                done.synchronize()
+        if len(jobs) == 1:
+            return jobs[0][0]
+        axis = sharding.dirs_batch_axis(
+            "banded" if self.algorithm.is_banded else self.kernel)
+        parts = list(zip(*(outs for outs, _ in jobs)))
+        return tuple(
+            None if p[0] is None else sharding.gather(p, axis if k == 3 else 0)
+            for k, p in enumerate(parts))
 
     def _finalize_args(self, b: Bucket) -> tuple:
         """finalize_any's arguments beyond the handle: a global walk starts
@@ -348,6 +374,32 @@ class AlignmentEngine:
             return ()
         return (None, np.ascontiguousarray(b.qry_len, np.int32),
                 np.ascontiguousarray(b.ref_len, np.int32))
+
+    def warmup(self, ds: PairDataset) -> None:
+        """Take one bucket of each distinct bucket shape this dataset's run
+        will take through its fill -- and, under device traceback, its
+        walk and compaction, finalized -- then wait for the engine's
+        devices (every shard's on a mesh).  On the card this moves the
+        kernels' first-use build and the allocators' first allocations out
+        of `run`.  Hirschberg and all-paths take no bucket fill, so there
+        is nothing to warm for them."""
+        if self.local_mode == "all" or (self.traceback_mode == "hirschberg"
+                                        and self.with_traceback):
+            return
+        seen: set[tuple] = set()
+        for b in self._buckets_of(ds):
+            shape = (b.ref_tokens.shape, b.qry_tokens.shape)
+            if shape in seen:
+                continue
+            seen.add(shape)
+            job = self._dispatch(b)
+            if self.device_tb:
+                finalize_any(job, *self._finalize_args(b))
+            else:
+                self._wait_fill(job)
+        for dev in self.mesh.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _buckets_of(self, ds: PairDataset) -> list[Bucket]:
         """Bucketize the kernel-eligible pairs with dataset-level ids."""
@@ -554,12 +606,10 @@ class AlignmentEngine:
                             collector.add_arrays(b.pair_ids[:nb], sc,
                                                  out_buf, out_lens)
             else:
-                outs, done = job
                 with timer.phase("kernel"):
                     # blocks only on this bucket; later fills keep running
-                    if done is not None:
-                        done.synchronize()
-                    fill = fill_to_numpy(*outs, **self._layout)
+                    fill = fill_to_numpy(*self._wait_fill(job),
+                                         **self._layout)
                 if collector is not None and self.with_traceback:
                     with timer.phase("backtrack"):
                         arrays = traceback_bucket_arrays(

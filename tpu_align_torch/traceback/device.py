@@ -334,8 +334,12 @@ class WalkHandle:
     done: object  # torch.cuda.Event | None
     ev_max: int
 
+    def finalize(self):
+        """device_walk_finalize_events of this walk."""
+        return device_walk_finalize_events(self)
 
-def _copy_to_host(tensors, device: torch.device):
+
+def copy_to_host(tensors, device: torch.device):
     """Enqueue non-blocking D2H copies into pinned buffers on the current
     stream; returns (host tensors, event).  CPU tensors pass through."""
     if device.type == "cpu":
@@ -381,7 +385,7 @@ def device_walk_dispatch_events(
     fetch = tuple(extras)
     if events:
         fetch = walk_kernel.compact_events(slots, nev, ev_max) + fetch
-    host, done = _copy_to_host(fetch, dirs.device)
+    host, done = copy_to_host(fetch, dirs.device)
     return WalkHandle(events, packed, host, done, ev_max)
 
 
@@ -391,7 +395,6 @@ def device_walk_finalize_events(handle: WalkHandle):
     *extras): the stream when events mode was not chosen or a lane
     overflowed ev_max or the flat buffer.  The stream is copied from the
     device here, synchronously."""
-    global stream_finalized
     if handle.done is not None:
         handle.done.synchronize()
     got = [t.numpy() for t in handle.fetch]
@@ -402,13 +405,21 @@ def device_walk_finalize_events(handle: WalkHandle):
             return ("events", flat, nev, *extras)
     else:
         extras = got
+    return stream_form(handle, extras)
+
+
+def stream_form(handle: WalkHandle, extras) -> tuple:
+    """("stream", packed (T16, B) np.int32, steps, *extras) of a finished
+    walk: its packed stream copied from the device, synchronously."""
+    global stream_finalized
     stream_finalized += 1
     packed = handle.packed.cpu().numpy()
     return ("stream", packed, packed.shape[0] * MOVES_PER_WORD, *extras)
 
 
-def finalize_any(handle: WalkHandle, scores=None, srow=None, scol=None):
-    """Finalize a handle into a normalized tuple:
+def finalize_any(handle, scores=None, srow=None, scol=None):
+    """Finalize a handle (a WalkHandle, or distributed.sharding's
+    ShardedWalk, whose shards it joins) into a normalized tuple:
     ("events", flat np.uint16, nev, sc, sr, sj) or
     ("stream", packed (T16, B) np.int32, steps, sc, sr, sj).
 
@@ -416,7 +427,7 @@ def finalize_any(handle: WalkHandle, scores=None, srow=None, scol=None):
     extras; numpy arrays pass through as-is (global walks: the engine
     passes the bucket's host-side qry_len/ref_len -- the global start
     coordinates -- so only the scores cross the bus)."""
-    out = device_walk_finalize_events(handle)
+    out = handle.finalize()
     kind, payload, rest = out[0], out[1:3], out[3:]
     if len(rest) == 3:
         sc, sr, sj = (np.asarray(a) for a in rest)
