@@ -51,6 +51,16 @@ script exits 1 before the first phase):
                  total; then
                  stream mode forced with ev_max=2 for each aligner,
                  replayed blocks equal to the oracle
+  4a. pywalk  -- the main path's first 2048-pair 250-bp bucket, filled on
+                 the card for LNW, LSW and ANW (S=32) and BSW (band 16),
+                 through five traceback paths: the moves mode
+                 (device_traceback_bucket) with the native and the Python
+                 replay, the events path with the native replay, and the
+                 host walk, native and NumPy (traceback_bucket); all five
+                 AlignmentResults identical, the walk launched 3 times
+                 and the compaction once an aligner (counts set to 0
+                 before, read after); each path's wall printed beside
+                 the card's name and power limit
   5. goldens  -- `tpu-align-torch -device cuda` reproduces goldens/lnw,
                  lsw, anw and bsw byte for byte, with -traceback host and
                  device, and lnw, lsw and anw with -kernel rowscan
@@ -230,17 +240,22 @@ def _say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+def _smi() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_card():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     name = torch.cuda.get_device_name(0)
     _say("card", f"torch {torch.__version__} cuda {torch.version.cuda}; "
          f"device 0: {name}; {torch.cuda.device_count()} visible")
@@ -586,6 +601,96 @@ def phase_walk(cases):
         _say("walk", f"{algo.value}: ev_max=2 takes stream mode; "
              f"{b.num_real} replayed alignments equal the oracle")
     return errs
+
+
+def _same_results(got, want, label: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} results, want "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        if (g.pair_num, g.score, g.ref_aligned, g.relation,
+                g.query_aligned) != (w.pair_num, w.score, w.ref_aligned,
+                                     w.relation, w.query_aligned):
+            raise AssertionError(f"{label}: pair {w.pair_num} differs")
+
+
+def phase_pywalk(main_buckets) -> dict:
+    """One full 2048-pair bucket of the main path's workload through each
+    traceback path from one card fill: the moves mode with the native and
+    the Python replay (device_traceback_bucket), the events path
+    (device_walk_dispatch_events, finalize_any, the native replay), and
+    the host walk, native and NumPy (traceback_bucket), for LNW, LSW and
+    ANW (stagger, S = 32) and BSW (banded, band 16).  The five give
+    identical AlignmentResults; the walk and compaction launch counts of
+    each aligner's run are set to 0 just before it and read just after.
+    Returns {algorithm: launch counts}."""
+    import torch
+
+    from tpu_align_torch import Algorithm, AlignmentParams
+    from tpu_align_torch.convert import bucket_to_tensors, fill_to_numpy
+    from tpu_align_torch.core.result import results_from_arrays
+    from tpu_align_torch.kernels import stagger as ts
+    from tpu_align_torch.traceback import device as td
+    from tpu_align_torch.traceback.host import traceback_bucket
+
+    b = main_buckets[0]
+    if b.num_real != 2048:
+        raise AssertionError(f"the first bucket holds {b.num_real} pairs")
+    smi = _smi()
+    out = {}
+    for algo in Algorithm:
+        if algo.is_banded:
+            params, layout = AlignmentParams(band=16), {"band": 16}
+        else:
+            params, layout = AlignmentParams(), {"stripe_s": ts.STRIPE_S}
+        sc, sr, sj, dirs = _fill(algo, params, bucket_to_tensors(b, DEVICE),
+                                 layout)
+        fill = fill_to_numpy(sc, sr, sj, dirs, **layout)
+        s = ts.STRIPE_S
+
+        def events_path():
+            fin = td.finalize_any(td.device_walk_dispatch_events(
+                algo, params, dirs, sr, sj, sc, s, extras=(sc, sr, sj)))
+            arrays = td.bucket_arrays_from_finalized(algo, b, params, fin)
+            return results_from_arrays(b.pair_ids, *arrays, b.num_real)
+
+        paths = {
+            "moves, native replay": lambda: td.device_traceback_bucket(
+                algo, b, sc, sr, sj, dirs, params, s),
+            "moves, Python replay": lambda: td.device_traceback_bucket(
+                algo, b, sc, sr, sj, dirs, params, s, use_native=False),
+            "events, native replay": events_path,
+            "host walk, native": lambda: traceback_bucket(algo, b, fill,
+                                                          params),
+            "host walk, NumPy": lambda: traceback_bucket(
+                algo, b, fill, params, use_native=False),
+        }
+        torch.cuda.synchronize()
+        _reset_counts()
+        results, walls = {}, {}
+        for name, fn in paths.items():
+            t0 = time.perf_counter()
+            results[name] = fn()
+            walls[name] = time.perf_counter() - t0
+        counts = _counts()
+        label = (f"{algo.value} {b.batch}x{b.padded_qry}x{b.padded_ref} "
+                 f"{_layout_label(layout)}")
+        want = results["host walk, native"]
+        if len(want) != b.num_real:
+            raise AssertionError(f"{label}: {len(want)} results")
+        for name, got in results.items():
+            _same_results(got, want, f"{label} {name}")
+        # three walks (two moves, one events) and one compaction
+        if (counts["walk"], counts["compact"]) != (3, 1):
+            raise AssertionError(f"{label}: walk launches {counts['walk']},"
+                                 f" compaction {counts['compact']}")
+        for name, wall in walls.items():
+            _say("pywalk", f"{label} {name}: {wall:.4f} s ({smi})")
+        _say("pywalk", f"{label}: the five paths identical over "
+             f"{len(want)} pairs; walk launches {counts['walk']}, "
+             f"compaction {counts['compact']}")
+        out[algo] = counts
+    return out
 
 
 def _cli_golden(phase: str, tree: str, algo: str, extra) -> None:
@@ -2180,6 +2285,7 @@ def main(argv=None) -> int:
     cases = _check_cases(main_buckets)
     fill_err = phase_kernel(cases)
     walk_err = phase_walk(cases)
+    pywalk = phase_pywalk(main_buckets)
     phase_goldens()
     runs, profiled = phase_e2e(ds, main_buckets, profile)
     rowscan_err, split_inputs = phase_rowscan(cases, main_buckets)
@@ -2193,7 +2299,7 @@ def main(argv=None) -> int:
         raise AssertionError("jax or the JAX package was imported")
     import torch
 
-    def record(kname, source, replaces, launches, err, t):
+    def record(kname, source, replaces, launches, err, t, extra=None):
         if launches <= 0:
             raise AssertionError(f"{kname}: no launch on its main path")
         return {"name": kname, "route": "cuda", "source": source,
@@ -2201,6 +2307,7 @@ def main(argv=None) -> int:
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"],
+                **(extra or {}),
                 **{k: t[k] for k in ("device_ms", "longest_lane_moves",
                                      "ns_per_move", "events",
                                      "ns_per_event", "scores_device_ms",
@@ -2212,6 +2319,9 @@ def main(argv=None) -> int:
 
     def fill_errs(algo):
         return max(e for (a, _), e in fill_err.items() if a is algo)
+
+    def pywalk_launches(kind, *algos):
+        return {"pywalk_launches": sum(pywalk[a][kind] for a in algos)}
 
     csrc = "tpu_align_torch/csrc/"
     long_lnw = "lnw {} x ({} x {})".format(*LONG_RUNS[1][1:])
@@ -2231,11 +2341,13 @@ def main(argv=None) -> int:
         record("stagger_walk", csrc + "stagger_walk.cu", walk_tpu,
                runs["lnw-device"]["walk"],
                max(walk_err[Algorithm.LNW], walk_err[Algorithm.LSW]),
-               times["stagger_walk"]),
+               times["stagger_walk"],
+               pywalk_launches("walk", Algorithm.LNW, Algorithm.LSW)),
         record("compact_events", csrc + "stagger_walk.cu",
                "tpu_align/traceback/device.py:313",
                runs["lnw-device"]["compact"], max(walk_err.values()),
-               times["compact_events"]),
+               times["compact_events"],
+               pywalk_launches("compact", *Algorithm)),
         record("anw_stagger_fill", csrc + "stagger_fill.cu", stagger_tpu,
                runs["anw-device"]["stagger_fill"], fill_errs(Algorithm.ANW),
                times["anw_stagger_fill"]),
@@ -2245,11 +2357,13 @@ def main(argv=None) -> int:
                times["bsw_banded_fill"]),
         record("anw_stagger_walk", csrc + "stagger_walk.cu", walk_tpu,
                runs["anw-device"]["walk"], walk_err[Algorithm.ANW],
-               times["anw_stagger_walk"]),
+               times["anw_stagger_walk"],
+               pywalk_launches("walk", Algorithm.ANW)),
         record("banded_walk", csrc + "stagger_walk.cu",
                "tpu_align/traceback/walk_kernel.py:258",
                runs["bsw-device"]["walk"], walk_err[Algorithm.BSW],
-               times["banded_walk"]),
+               times["banded_walk"],
+               pywalk_launches("walk", Algorithm.BSW)),
         record("rowscan_fill", csrc + "rowscan_fill.cu",
                "tpu_align/kernels/fill.py:237",
                runs["lnw-host-rowscan"]["rowscan_fill"],

@@ -7,8 +7,9 @@ wavefront in every mode
 (all four aligners, dirs and scores: the wavefront's seams with planted
 ties, wide references, repeated launches; its last rows: row seams,
 widths, 1-128 problems, the split-level shape, repeated launches), the
-walk over both layouts (seam, long-run and main-path buckets; the banded
-walk at bands 1-32 and on runs to the band's edge slots at bands 3-129
+walk over both layouts (seam, long-run and main-path buckets; the moves
+mode and the Python replay against the events path; the banded walk at
+bands 1-32 and on runs to the band's edge slots at bands 3-129
 and 14,528-20,000), the event compaction, the Hirschberg split reduction
 (also on the shapes its grid splits differently, and repeated) and the
 Hirschberg path as a whole, the
@@ -496,6 +497,46 @@ def test_walk_on_the_main_path_bucket(cuda_device, algo):
     max_nev, total, cap = _walk_and_compact(algo, PARAMS, dirs, srow, scol,
                                             scores, ts.STRIPE_S)
     assert max_nev <= td.EV_MAX and total <= cap  # the event form
+
+
+@pytest.mark.parametrize("algo", list(Algorithm), ids=lambda a: a.value)
+def test_moves_mode_and_python_replay_on_the_card(cuda_device, algo):
+    """From a card fill of 300 mixed pairs (the stagger fill, BSW's banded
+    fill at band 16): the moves mode's stream equals the plain walk's
+    packed moves word for word, with one walk launch; the one-call
+    traceback in moves mode, with the native and the Python replay,
+    equals the events path's alignments."""
+    params = AlignmentParams(band=16) if algo.is_banded else PARAMS
+    b = _bucket(_pairs(21, 300, 1, 300, "ACGT"))
+    t = bucket_to_tensors(b, cuda_device)
+    if algo.is_banded:
+        scores, srow, scol, dirs = tb.fill_banded_bucket_async(algo, params,
+                                                               *t)
+    else:
+        scores, srow, scol, dirs = ts.fill_stagger_bucket_async(algo,
+                                                                params, *t)
+    args = (algo, params, dirs, srow, scol, scores, ts.STRIPE_S)
+    before = wk.walk_launches
+    packed, steps = td.device_traceback_moves(*args)
+    assert wk.walk_launches == before + 1
+    want = td.device_walk_reference(*args)
+    np.testing.assert_array_equal(packed, want[0].cpu().numpy())
+    assert steps == packed.shape[0] * td.MOVES_PER_WORD
+
+    def lines(results):
+        return [(r.pair_num, r.score, r.ref_aligned, r.relation,
+                 r.query_aligned) for r in results]
+
+    events = td.device_traceback_bucket(
+        algo, b, scores, srow, scol, dirs, params, ts.STRIPE_S,
+        handle=td.device_walk_dispatch_events(*args,
+                                              extras=(scores, srow, scol)))
+    assert len(events) == b.num_real
+    for use_native in (True, False):
+        got = td.device_traceback_bucket(algo, b, scores, srow, scol, dirs,
+                                         params, ts.STRIPE_S,
+                                         use_native=use_native)
+        assert lines(got) == lines(events)
 
 
 @pytest.mark.parametrize("hi", [3, 20, 50])

@@ -31,10 +31,10 @@ relative path of its original, so a reader finds the counterpart:
                csrc/dpx.cuh mapping each onto its sm_90 instruction
   kernels/     the stagger, banded and row-sweep fill wrappers, their
                plain versions, the build of every CUDA kernel
-  traceback/   the native host walk over every dirs layout; the device
-               walk's move semantics (decide_step), plain walk and
-               compaction, dispatch and replay glue; the kernel wrappers;
-               Hirschberg
+  traceback/   the host walk over every dirs layout (native, or NumPy on
+               request); the device walk's move semantics (decide_step),
+               plain walk and compaction, its events and moves modes, the
+               native and Python replays; the kernel wrappers; Hirschberg
   runtime/     batch engine (all-paths on the host; warmup; a mesh),
                phase profiler and the kernels' launch counts
   distributed/ data parallelism over a `pairs` mesh of devices (each
@@ -54,4 +54,6 @@ package's values.
 
 from tpu_align_torch.core.params import Algorithm, AlignmentParams
 
-__all__ = ["Algorithm", "AlignmentParams"]
+__version__ = "0.1.0"
+
+__all__ = ["Algorithm", "AlignmentParams", "__version__"]

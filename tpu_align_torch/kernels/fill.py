@@ -53,9 +53,9 @@ launches = 0  # fill kernel launches (dirs or scores-only)
 last_rows_launches = 0  # last-row kernel launches
 
 
-def rows_per_word(algorithm: Algorithm) -> int:
+def rows_per_word(algo: Algorithm) -> int:
     """Query rows per direction word: 16 linear, 8 affine."""
-    return steps_per_word(algorithm)
+    return steps_per_word(algo)
 
 
 def dirs_shape(algorithm: Algorithm, m: int, n: int,

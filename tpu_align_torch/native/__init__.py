@@ -7,6 +7,7 @@ from tpu_align_torch.native.binding import (
     native_format_blocks,
     native_gather_padded,
     native_gather_parts,
+    native_gather_spans,
     native_parse_pair_bytes,
     native_replay_events,
     native_replay_events_blocks,
@@ -17,6 +18,7 @@ from tpu_align_torch.native.binding import (
 
 __all__ = ["available", "native_events_block_lens",
            "native_format_blocks", "native_gather_padded",
-           "native_gather_parts", "native_parse_pair_bytes",
+           "native_gather_parts", "native_gather_spans",
+           "native_parse_pair_bytes",
            "native_replay_events", "native_replay_events_blocks",
            "native_replay_moves", "native_traceback_bucket", "require"]

@@ -160,6 +160,10 @@ def _configure(lib) -> None:
             c_char_p, i64, i64p,         # dst, dst_cap, spans
             c_int,                       # num_threads
         ]),
+        "ta_gather_spans": (i64, [
+            c_char_p, i64p, i64p, i64,   # src, spans, order, count
+            c_char_p,                    # dst
+        ]),
         "ta_gather_parts": (i64, [
             ctypes.POINTER(c_char_p),    # srcs
             i64p, i32p, i64p, i64,       # spans, part_of, order, count
@@ -453,6 +457,36 @@ def native_format_blocks(
         raise RuntimeError(f"ta_format_blocks needs {-total} bytes, more "
                            f"than its exact bound {cap}")
     return chunk[:total], spans
+
+
+def native_gather_spans(src: np.ndarray, spans: np.ndarray,
+                        order: np.ndarray):
+    """Concatenate src's spans in the given order: block b is
+    src[spans[b, 0]:spans[b, 0] + spans[b, 1]].  Returns the gathered uint8
+    array.  Raises RuntimeError when the library cannot load (the JAX
+    package's wrapper returns None there)."""
+    require("native_gather_spans")
+    lib = _load()
+    src = np.ascontiguousarray(src, np.uint8)
+    spans = np.ascontiguousarray(spans, np.int64)
+    order = np.ascontiguousarray(order, np.int64)
+    if spans.ndim != 2 or spans.shape[1] != 2:
+        raise ValueError(f"spans must be (B, 2), got {spans.shape}")
+    if order.size and (order.min() < 0 or order.max() >= spans.shape[0]):
+        raise ValueError("order indexes past spans")
+    if spans.size and ((spans < 0).any()
+                       or (spans[:, 0] + spans[:, 1] > src.size).any()):
+        raise ValueError("a span lies outside src")
+    total = int(spans[order, 1].sum()) if order.size else 0
+    dst = np.empty(total, np.uint8)
+    done = lib.ta_gather_spans(
+        src.ctypes.data_as(ctypes.c_char_p), _ptr(spans, ctypes.c_int64),
+        _ptr(order, ctypes.c_int64), order.shape[0],
+        dst.ctypes.data_as(ctypes.c_char_p),
+    )
+    if done != total:
+        raise RuntimeError(f"ta_gather_spans wrote {done} of {total} bytes")
+    return dst
 
 
 def native_gather_parts(srcs, spans: np.ndarray, part_of: np.ndarray,

@@ -251,8 +251,12 @@ def apply(name: str, *args):
 
 
 def _define(name: str):
-    def fn(*args):
-        return apply(name, *args)
+    if _TABLE[name][1] == 2:
+        def fn(a, b):
+            return apply(name, a, b)
+    else:
+        def fn(a, b, c):
+            return apply(name, a, b, c)
 
     fn.__name__ = fn.__qualname__ = name
     fn.__doc__ = (f"DPX __{name} (csrc/dpx.cuh); tpu_align/ops/dpx.py "

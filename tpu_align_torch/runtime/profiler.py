@@ -31,6 +31,9 @@ class PhaseTimer:
         finally:
             self.seconds[name] += time.perf_counter() - t0
 
+    def add(self, name: str, secs: float) -> None:
+        self.seconds[name] += secs
+
     @property
     def total(self) -> float:
         return sum(self.seconds.values())

@@ -30,8 +30,20 @@ budget and its doubling retry have no counterpart.  Decoded move
 sequences and events are the contract with the JAX package; packed
 positions are not (its two walk engines differ there too).
 
-The replay goes through the native library or raises: the port has no
-Python replay.
+Two readbacks of one walk (the CUDA walk kernel either way):
+* events mode (device_walk_dispatch_events), the engine's: only the
+  compacted events cross to the host, the packed stream when they
+  overflow;
+* moves mode (device_walk_dispatch, device_walk_finalize,
+  device_traceback_moves): the dense packed stream itself, with no
+  compaction.
+Both return a WalkHandle, which finalize_any takes, and
+device_traceback_bucket(_arrays) run a whole bucket in one call.
+
+Two replays of a finalized walk: the threaded native replayers (the
+default), which raise when the native library cannot load, and the
+Python replay (moves_to_result, _events_to_codes), taken only on an
+explicit use_native=False -- never because a load failed.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch
 
 from tpu_align_torch.core import directions as D
 from tpu_align_torch.core.params import Algorithm, AlignmentParams
+from tpu_align_torch.core.result import AlignmentResult, results_from_arrays
 from tpu_align_torch.kernels.banded import ROWS_PER_WORD as BANDED_ROWS
 from tpu_align_torch.kernels.common import (
     bits_per_cell,
@@ -324,15 +337,17 @@ def unpack_moves(packed: np.ndarray, steps: int) -> np.ndarray:
 class WalkHandle:
     """A dispatched walk.  `fetch` holds host tensors (pinned copies being
     filled by async D2H on CUDA, the tensors themselves on CPU) of the
-    events -- flat, nev, max_nev, total, in events mode -- then the
-    extras; `done` is the CUDA event that marks the copies complete.
-    `packed` stays on the device for the stream form."""
+    events -- flat, nev, max_nev, total, in events mode -- or, in moves
+    mode, of the packed stream, then the extras; `done` is the CUDA event
+    that marks the copies complete.  Otherwise `packed` stays on the
+    device for the stream form."""
 
     events: bool
     packed: torch.Tensor
     fetch: tuple
     done: object  # torch.cuda.Event | None
     ev_max: int
+    moves: bool = False  # the packed stream rides the copies
 
     def finalize(self):
         """device_walk_finalize_events of this walk."""
@@ -392,12 +407,15 @@ def device_walk_dispatch_events(
 def device_walk_finalize_events(handle: WalkHandle):
     """Wait for a dispatched walk.  Returns ("events", flat np.uint16,
     nev (B,), *extras) or ("stream", packed (T16, B) np.int32, steps,
-    *extras): the stream when events mode was not chosen or a lane
-    overflowed ev_max or the flat buffer.  The stream is copied from the
-    device here, synchronously."""
+    *extras): the stream in moves mode, which copied it with the extras,
+    and when events mode was not chosen or a lane overflowed ev_max or the
+    flat buffer, where it is copied from the device here, synchronously."""
     if handle.done is not None:
         handle.done.synchronize()
     got = [t.numpy() for t in handle.fetch]
+    if handle.moves:
+        packed, *extras = got
+        return ("stream", packed, packed.shape[0] * MOVES_PER_WORD, *extras)
     if handle.events:
         flat, nev, max_nev, total = got[:4]
         extras = got[4:]
@@ -417,8 +435,61 @@ def stream_form(handle: WalkHandle, extras) -> tuple:
     return ("stream", packed, packed.shape[0] * MOVES_PER_WORD, *extras)
 
 
+def device_walk_dispatch(
+    algorithm: Algorithm,
+    params: AlignmentParams,
+    dirs: torch.Tensor,
+    start_row: torch.Tensor, start_col: torch.Tensor, scores: torch.Tensor,
+    stripe_s: int,
+    extras: tuple = (),
+) -> WalkHandle:
+    """Enqueue the walk behind the bucket's fill in moves mode: no
+    compaction; non-blocking copies of the dense packed stream (T16, B)
+    int32 and `extras` (e.g. the bucket's scores and start cells).
+    Nothing waits.  dirs and the (B,) int32 start cells and scores as in
+    device_walk_dispatch_events, whose handle this is with the events
+    turned off and the packed stream among the copies."""
+    from tpu_align_torch.traceback import walk_kernel
+
+    packed, _, _ = walk_kernel.device_walk(
+        algorithm, params, dirs, start_row, start_col, scores, stripe_s)
+    host, done = copy_to_host((packed,) + tuple(extras), dirs.device)
+    return WalkHandle(False, packed, host, done, EV_MAX, moves=True)
+
+
+def device_walk_finalize(handle: WalkHandle):
+    """Wait for a walk dispatched in moves mode.  Returns (packed (T16, B)
+    np.int32, steps, *extras as numpy arrays).
+
+    steps is the stream's length in moves, T16 * 16: the path bound
+    walk_steps, as stream_form returns it.  In the JAX package it is the
+    phase count that its lanes share, since its walk moves all lanes a
+    row at a time; the port walks each lane on its own, its moves dense
+    from step 0, so what the two packages share is each lane's move
+    sequence with the no-move codes dropped, not the raw words."""
+    if not handle.moves:
+        raise ValueError("device_walk_finalize takes a moves-mode walk "
+                         "(device_walk_dispatch); an events-mode walk "
+                         "finalizes with device_walk_finalize_events")
+    return device_walk_finalize_events(handle)[1:]
+
+
+def device_traceback_moves(
+    algorithm: Algorithm,
+    params: AlignmentParams,
+    dirs: torch.Tensor,
+    start_row: torch.Tensor, start_col: torch.Tensor, scores: torch.Tensor,
+    stripe_s: int,
+):
+    """Run the device walk in moves mode and wait: (packed (T16, B)
+    np.int32, steps).  Only the packed moves cross to the host."""
+    return device_walk_finalize(device_walk_dispatch(
+        algorithm, params, dirs, start_row, start_col, scores, stripe_s))
+
+
 def finalize_any(handle, scores=None, srow=None, scol=None):
-    """Finalize a handle (a WalkHandle, or distributed.sharding's
+    """Finalize a handle (a WalkHandle of either mode -- a moves-mode walk
+    comes back in the stream form -- or distributed.sharding's
     ShardedWalk, whose shards it joins) into a normalized tuple:
     ("events", flat np.uint16, nev, sc, sr, sj) or
     ("stream", packed (T16, B) np.int32, steps, sc, sr, sj).
@@ -443,7 +514,8 @@ def finalize_any(handle, scores=None, srow=None, scol=None):
 def _native():
     from tpu_align_torch import native
 
-    native.require("the port has no Python replay")
+    native.require("the native replay; use_native=False takes the Python "
+                   "replay")
     return native
 
 
@@ -483,10 +555,17 @@ def bucket_blocks_from_finalized(algorithm, bucket, params, fin):
     return ids, sc[:nb], chunk, spans
 
 
-def bucket_arrays_from_finalized(algorithm, bucket, params, fin):
-    """Replay a finalized walk into (scores, out_buf (nb, 3, stride)
-    uint8, out_lens (nb,) int32) for the native block formatter or
-    results_from_arrays."""
+def bucket_arrays_from_finalized(algorithm, bucket, params, fin,
+                                 use_native: bool = True):
+    """Replay a finalized walk (finalize_any's tuple).  With use_native
+    (the default): (scores, out_buf (nb, 3, stride) uint8, out_lens (nb,)
+    int32) from the native replayers, for the native block formatter or
+    results_from_arrays; raises RuntimeError when the native library
+    cannot load.  With use_native=False: list[AlignmentResult] from the
+    Python replay (_events_to_codes, unpack_moves, moves_to_result), the
+    JAX package's list form."""
+    if not use_native:
+        return _replay_python(algorithm, bucket, params, fin)
     native = _native()
     nb = bucket.num_real
     if fin[0] == "events":
@@ -507,3 +586,185 @@ def bucket_arrays_from_finalized(algorithm, bucket, params, fin):
             sr[:nb], sj[:nb], sc[:nb], local=algorithm.is_local,
         )
     return sc[:nb], out_buf, out_lens
+
+
+def _replay_python(algorithm, bucket, params, fin) -> list[AlignmentResult]:
+    """The Python replay of a finalized walk, pair by pair."""
+    nb = bucket.num_real
+    if fin[0] == "events":
+        _, flat, nev, sc, sr, sj = fin
+        ev_off = np.zeros(nev.shape[0] + 1, np.int64)
+        np.cumsum(nev, out=ev_off[1:])
+        codes = _events_to_codes(flat, ev_off, sr, sj, sc, bucket,
+                                 algorithm, params)
+    else:
+        _, packed, steps, sc, sr, sj = fin
+        codes = unpack_moves(packed, steps)
+    results = []
+    for row in range(nb):
+        rlen = int(bucket.ref_len[row])
+        qlen = int(bucket.qry_len[row])
+        # latin-1, as results_from_arrays decodes the native replay's bytes
+        ref = bucket.ref_tokens[row, :rlen].tobytes().decode("latin-1")
+        qry = bucket.qry_tokens[row, :qlen].tobytes().decode("latin-1")
+        results.append(moves_to_result(
+            algorithm, int(bucket.pair_ids[row]), int(sc[row]),
+            codes[:, row], ref, qry, int(sr[row]), int(sj[row])))
+    return results
+
+
+def moves_to_result(
+    algorithm: Algorithm,
+    pair_num: int,
+    score: int,
+    moves,  # (T,) uint8 codes 0..3, in walk order (backward)
+    ref: str,
+    qry: str,
+    start_row: int,
+    start_col: int,
+) -> AlignmentResult:
+    """Replay one lane's move stream into the three output lines.
+
+    The stream is in walk order (end -> start), no-move codes skipped;
+    emission mirrors the dirs walkers (traceback/host.py), so the output
+    is byte-identical.  A local lane with score <= 0 is an empty block."""
+    if algorithm.is_local and score <= 0:
+        return AlignmentResult(pair_num, score)
+    i, j = start_row, start_col
+    out_r, out_m, out_q = [], [], []
+    for mv in moves:
+        if mv == 0:
+            continue
+        if mv == 1:  # diagonal
+            rc, qc = ref[j - 1], qry[i - 1]
+            out_r.append(rc)
+            out_m.append(D.REL_MATCH if rc == qc else D.REL_MISMATCH)
+            out_q.append(qc)
+            i -= 1
+            j -= 1
+        elif mv == 2:  # query deletion
+            out_r.append(D.GAP_CHAR)
+            out_m.append(D.REL_GAP)
+            out_q.append(qry[i - 1])
+            i -= 1
+        else:  # query insertion
+            out_r.append(ref[j - 1])
+            out_m.append(D.REL_GAP)
+            out_q.append(D.GAP_CHAR)
+            j -= 1
+    return AlignmentResult(
+        pair_num, score,
+        "".join(reversed(out_r)),
+        "".join(reversed(out_m)),
+        "".join(reversed(out_q)),
+    )
+
+
+def _events_to_codes(flat, ev_off, sr, sj, sc, bucket, algorithm, params):
+    """The Python counterpart of native_replay_events' expansion: flat
+    per-lane event payloads ((row << 1 | is_ins) uint16, lane b's events
+    at flat[ev_off[b]:ev_off[b + 1]]) -> dense (T, nb) move codes, the
+    diagonals between events filled in, with the local re-scoring stop
+    (native/tpualign.cpp replay_events_range)."""
+    nb = bucket.num_real
+    local = algorithm.is_local
+    t_cap = bucket.qry_tokens.shape[1] + bucket.ref_tokens.shape[1] + 1
+    codes = np.zeros((t_cap, nb), np.uint8)
+    for b in range(nb):
+        rem = int(sc[b])
+        if local and rem <= 0:
+            continue
+        r, c = int(sr[b]), int(sj[b])
+        ref = bucket.ref_tokens[b]
+        qry = bucket.qry_tokens[b]
+        t = 0
+        done = False
+
+        def diag():
+            nonlocal r, c, t, rem, done
+            codes[t, b] = 1
+            t += 1
+            if local:
+                rem -= (params.match if ref[c - 1] == qry[r - 1]
+                        else params.mismatch)
+                if rem <= 0:
+                    done = True
+            r -= 1
+            c -= 1
+
+        for k in range(int(ev_off[b]), int(ev_off[b + 1])):
+            if done:
+                break
+            p = int(flat[k])
+            if p == 0:
+                break
+            i_e = p >> 1
+            while r > i_e and not done:
+                diag()
+            if done:
+                break
+            codes[t, b] = 3 if (p & 1) else 2
+            t += 1
+            if p & 1:
+                c -= 1
+            else:
+                r -= 1
+            if local:
+                rem -= params.gap
+                if rem <= 0:
+                    done = True
+        if local:
+            while not done and r > 0 and c > 0:
+                diag()
+        else:
+            while r > 0:
+                diag()
+    return codes
+
+
+def device_traceback_bucket_arrays(
+    algorithm: Algorithm,
+    bucket,
+    scores, srow, scol, dirs,
+    params: AlignmentParams,
+    stripe_s: int,
+    handle=None,
+    use_native: bool = True,
+):
+    """A bucket's device traceback in one call: the walk (dispatched here
+    in moves mode, with scores and start cells as extras, unless `handle`
+    holds a walk from device_walk_dispatch or device_walk_dispatch_events),
+    then the replay.  Returns bucket_arrays_from_finalized's result: the
+    native arrays (scores, out_buf, out_lens), or with use_native=False a
+    list[AlignmentResult].  dirs, scores, srow and scol are tensors on the
+    walk's device; only the moves (or events) and those three cross to
+    the host."""
+    if handle is None:
+        handle = device_walk_dispatch(
+            algorithm, params, dirs, srow, scol, scores, stripe_s,
+            extras=(scores, srow, scol))
+    fin = finalize_any(handle, scores, srow, scol)
+    return bucket_arrays_from_finalized(algorithm, bucket, params, fin,
+                                        use_native=use_native)
+
+
+def device_traceback_bucket(
+    algorithm: Algorithm,
+    bucket,
+    scores, srow, scol, dirs,
+    params: AlignmentParams,
+    stripe_s: int,
+    handle=None,
+    use_native: bool = True,
+) -> list[AlignmentResult]:
+    """device_traceback_bucket_arrays as one AlignmentResult a real pair
+    (pair_num = original dataset index): the native replay, which raises
+    without its library, or with use_native=False the Python replay."""
+    out = device_traceback_bucket_arrays(
+        algorithm, bucket, scores, srow, scol, dirs, params, stripe_s,
+        handle=handle, use_native=use_native)
+    if isinstance(out, list):
+        return out
+    sc, out_buf, out_lens = out
+    return results_from_arrays(bucket.pair_ids, sc, out_buf, out_lens,
+                               bucket.num_real)
