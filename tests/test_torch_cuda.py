@@ -19,7 +19,9 @@ a whole: hw_parity's 14 configurations over 1,024 mixed-length pairs
 against the oracle, a few seeds of each fuzzer, the all-paths goldens
 through `-all-paths -device cuda`, and the engine on a 2-shard mesh of the
 card (after warmup) against the one-device run, launch counts included;
-the mesh of every visible card, global_stats, and -mesh beyond them.
+the mesh of every visible card, global_stats, and -mesh beyond them; the
+fill counters against the buckets of an engine run and against
+Hirschberg's fill launches.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 The module imports only the port.  The card's machine has no JAX, and
@@ -44,6 +46,7 @@ from tpu_align_torch.kernels import fill as rs
 from tpu_align_torch.kernels import stagger as ts
 from tpu_align_torch.ops import dpx
 from tpu_align_torch.oracle.api import align_pair
+from tpu_align_torch.runtime.profiler import launch_counts, reset_launch_counts
 from tpu_align_torch.scripts import exp_s16x2
 from tpu_align_torch.traceback import device as td
 from tpu_align_torch.traceback import hirschberg as th
@@ -63,6 +66,8 @@ from tpu_align_torch.utils.synthetic import (
 pytestmark = pytest.mark.cuda
 
 PARAMS = AlignmentParams()
+FILL_COUNTS = ("stagger_fill", "banded_fill", "rowscan_fill",
+               "rowscan_last_rows", "stagger_last_rows")
 GOLDENS = os.path.join(os.path.dirname(__file__), "..", "goldens")
 
 
@@ -918,11 +923,41 @@ def test_hirschberg_on_the_card_matches_the_plain_run(cuda_device, algo,
     pairs = [(a, q) for a, q in _pairs(25, 6, 150, 400, "ACGT")]
     pairs[1] = (pairs[1][0] * 2, pairs[1][1][:90])
     monkeypatch.setattr(th, "LAST_ROWS_KERNEL", last_rows)
+    reset_launch_counts()
     got = th.hirschberg_align_batch(algo, PARAMS, pairs, leaf_q=32,
                                     device=cuda_device)
+    counts = launch_counts()
     want = th.hirschberg_align_batch(algo, PARAMS, pairs, leaf_q=32,
                                      device="cpu")
     assert [r.block() for r in got] == [r.block() for r in want]
+    # the fill counters count every fill launch: the split levels' last
+    # rows, LSW's end points and the leaves
+    assert counts[f"{last_rows}_last_rows"] > 0
+    assert counts["fill_counted"] == sum(counts[k] for k in FILL_COUNTS)
+    assert counts["fill_warps"] >= counts["fill_pairs"] > 0
+
+
+def test_fill_counters_equal_the_buckets(cuda_device):
+    """After a scores-only LNW engine run the fill counters hold, a
+    launch a bucket, each bucket's real pairs (a warp each), its cells
+    and its largest pair's cells."""
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+
+    ds = synthetic_dataset(5000, min_len=20, max_len=400, seed=7)
+    engine = AlignmentEngine(Algorithm.LNW, device="cuda",
+                             with_traceback=False, output="blocks")
+    buckets = engine._buckets_of(ds)
+    engine.warmup(ds)
+    reset_launch_counts()
+    engine.run(ds)
+    counts = launch_counts()
+    cells = [b.ref_len[:b.num_real].astype(np.int64) * b.qry_len[:b.num_real]
+             for b in buckets]
+    assert counts["fill_counted"] == counts["stagger_fill"] == len(buckets)
+    assert counts["fill_pairs"] == counts["fill_warps"] == len(ds)
+    assert counts["fill_cells"] == sum(int(c.sum()) for c in cells) \
+        == ds.num_cells
+    assert counts["fill_chain_cells"] == sum(int(c.max()) for c in cells)
 
 
 @pytest.mark.parametrize("name", dpx.OPS)
@@ -1026,10 +1061,6 @@ def test_mesh_engine_on_the_card_matches_one_device(cuda_device, algo,
     the blocks byte-identical to the one-device run."""
     from tpu_align_torch.distributed import make_pairs_mesh
     from tpu_align_torch.runtime.engine import AlignmentEngine
-    from tpu_align_torch.runtime.profiler import (
-        launch_counts,
-        reset_launch_counts,
-    )
 
     ds = synthetic_dataset(4096, uniform_len=250, seed=42)
     one = AlignmentEngine(algo, device="cuda", traceback=traceback,

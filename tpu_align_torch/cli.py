@@ -6,7 +6,8 @@ equivalent), plus -device (default cuda).  Runs the four aligners
 hirschberg, and -kernel auto, stagger or rowscan; -all-paths prints
 every co-optimal path (lnw, lsw, bsw; computed on the host, as in the JAX
 package).  -mesh N runs each bucket data-parallel over N devices of
--device's type (N CPU shards with -device cpu).
+-device's type (N CPU shards with -device cpu).  -trace FILE writes the
+run's phase spans and fill counters as Chrome trace JSON.
 
 Usage:
     python -m tpu_align_torch -pairs input.txt -match 3 -mismatch -1 -gap -2
@@ -15,6 +16,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -24,6 +26,7 @@ from tpu_align_torch.core.params import Algorithm, AlignmentParams
 from tpu_align_torch.distributed import make_pairs_mesh
 from tpu_align_torch.io.bucketing import BucketSpec
 from tpu_align_torch.io.dataset import parse_pair_file
+from tpu_align_torch.runtime import profiler
 from tpu_align_torch.runtime.engine import AlignmentEngine
 
 
@@ -93,6 +96,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-device", default="cuda",
                    help="torch device: cuda, cuda:N, or cpu (every "
                         "kernel's plain PyTorch version)")
+    p.add_argument("-trace", default=None, metavar="FILE",
+                   help="record the run's phase spans (each with its "
+                        "parent, batch and bucket) and the fill launches' "
+                        "counters, and write them to FILE as Chrome trace "
+                        "JSON (chrome://tracing, Perfetto); times on the "
+                        "monotonic clock, with the realtime and monotonic "
+                        "clocks read as the run began, which put the spans "
+                        "beside a torch.profiler trace")
     return p
 
 
@@ -152,7 +163,15 @@ def main(argv=None) -> int:
     ds = parse_pair_file(args.pairs)
     parse_s = time.perf_counter() - t0
     st = ds.stats()
-    out = engine.run(ds, checkpoint_dir=args.checkpoint_dir)
+    timer = None
+    if args.trace:
+        profiler.reset_launch_counts()
+        timer = profiler.PhaseTimer(record=True)
+    out = engine.run(ds, checkpoint_dir=args.checkpoint_dir, timer=timer)
+    if args.trace:
+        with open(args.trace, "w") as f:
+            json.dump(profiler.chrome_trace(timer,
+                                            profiler.launch_counts()), f)
     if not args.no_output:
         data = out.output_bytes()
         if args.out:
@@ -171,7 +190,7 @@ def main(argv=None) -> int:
     print(f"Query length min/max/avg: {st.min_query_length}/"
           f"{st.max_query_length}/{st.avg_query_length:.1f}", file=err)
     print(f"{'parse':>12}: {parse_s * 1e6:14.1f} us", file=err)
-    print(out.timer.report(), file=err)
+    print(out.timer.report(sub_spans=False), file=err)
     if out.timer.seconds.get("kernel"):
         print(f"GCUPS (kernel): {out.gcups:.3f}", file=err)
     else:

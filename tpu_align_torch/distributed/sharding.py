@@ -33,6 +33,7 @@ from tpu_align_torch.io.bucketing import BucketSpec
 from tpu_align_torch.kernels import fill as rowscan
 from tpu_align_torch.kernels.banded import fill_banded_bucket_async
 from tpu_align_torch.kernels.stagger import STRIPE_S, fill_stagger_bucket_async
+from tpu_align_torch.runtime import profiler
 from tpu_align_torch.traceback import device as td
 
 KERNELS = ("stagger", "rowscan", "banded")
@@ -141,6 +142,7 @@ def fill_sharded(
     with_traceback: bool = True,
     kernel: str = "stagger",
     stripe_s: int | None = None,
+    timer: profiler.PhaseTimer | None = None,
 ):
     """Run the fill data-parallel over the mesh's `pairs` axis.
 
@@ -151,7 +153,14 @@ def fill_sharded(
     kernel selects the fill ("stagger" default, "rowscan", or "banded" --
     forced for the banded aligner); stripe_s the stagger stripe width
     (dirs layout (stripes, W, stripe_s, B) -- the walk must be told the
-    same value, which the engine guarantees)."""
+    same value, which the engine guarantees).
+
+    Each shard's upload is a "dispatch.upload" span of `timer` (a
+    runtime.profiler.PhaseTimer), its fill's launch a "dispatch.enqueue";
+    a launch on a card is counted (profiler.count_fill) from the shard's
+    host lengths."""
+    if timer is None:
+        timer = profiler.PhaseTimer()
     if stripe_s is None:
         stripe_s = STRIPE_S
     if algorithm.is_banded:
@@ -167,19 +176,24 @@ def fill_sharded(
     outs = []
     for dev, rows in zip(mesh.devices, shard_rows(b, n)):
         with on_device(dev):
-            tensors = arrays_to_tensors(*(a[rows] for a in host), dev)
-            if kernel == "banded":
-                out = fill_banded_bucket_async(
-                    algorithm, params, *tensors,
-                    with_traceback=with_traceback)
-            elif kernel == "stagger":
-                out = fill_stagger_bucket_async(
-                    algorithm, params, *tensors,
-                    with_traceback=with_traceback, stripe_s=stripe_s)
-            else:
-                out = rowscan.fill_bucket_async(
-                    algorithm, params, *tensors,
-                    with_traceback=with_traceback)
+            with timer.phase("dispatch.upload"):
+                tensors = arrays_to_tensors(*(a[rows] for a in host), dev)
+            with timer.phase("dispatch.enqueue"):
+                if kernel == "banded":
+                    out = fill_banded_bucket_async(
+                        algorithm, params, *tensors,
+                        with_traceback=with_traceback)
+                elif kernel == "stagger":
+                    out = fill_stagger_bucket_async(
+                        algorithm, params, *tensors,
+                        with_traceback=with_traceback, stripe_s=stripe_s)
+                else:
+                    out = rowscan.fill_bucket_async(
+                        algorithm, params, *tensors,
+                        with_traceback=with_traceback)
+        if dev.type == "cuda":
+            profiler.count_fill(kernel, host[2][rows], host[3][rows],
+                                params.band)
         outs.append(out)
     scores, srow, scol, dirs = (tuple(o[k] for o in outs) for k in range(4))
     return scores, srow, scol, dirs if with_traceback else None

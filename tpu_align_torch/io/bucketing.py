@@ -131,27 +131,41 @@ def _make_bucket(ds: PairDataset, idx: np.ndarray, mq: int, nr: int,
     return Bucket(ref_tokens, qry_tokens, ref_len, qry_len, pair_ids, b_real)
 
 
-def bucketize(ds: PairDataset, spec: BucketSpec | None = None) -> list[Bucket]:
+def bucketize(ds: PairDataset, spec: BucketSpec | None = None,
+              timer=None) -> list[Bucket]:
     """Group pairs into fixed-shape buckets, preserving input order within
     each bucket (output ordering across buckets is restored later by pair id,
-    the job scripts/reorderOutput.py does for the reference)."""
+    the job scripts/reorderOutput.py does for the reference).
+
+    timer (a runtime.profiler.PhaseTimer) takes the spans "memmgmt.group"
+    (the sort and split) and "memmgmt.gather" (a bucket's padded token
+    gathers, under the bucket's id: its index in the list returned)."""
+    if timer is None:
+        from tpu_align_torch.runtime.profiler import PhaseTimer
+
+        timer = PhaseTimer()
     spec = spec or BucketSpec()
     if len(ds) == 0:
         return []
-    mq = np.maximum(ds.qry_len, 1)
-    nr = np.maximum(ds.ref_len, 1)
-    pad_q = -(-mq // spec.query_multiple) * spec.query_multiple
-    pad_r = -(-nr // spec.ref_multiple) * spec.ref_multiple
-    # group by (pad_q, pad_r) via lexicographic sort, stable so pair order kept
-    order = np.lexsort((np.arange(len(ds)), pad_r, pad_q))
-    keys = pad_q[order] * (1 << 32) + pad_r[order]
-    boundaries = np.flatnonzero(np.diff(keys)) + 1
-    groups = np.split(order, boundaries)
+    with timer.phase("memmgmt.group"):
+        mq = np.maximum(ds.qry_len, 1)
+        nr = np.maximum(ds.ref_len, 1)
+        pad_q = -(-mq // spec.query_multiple) * spec.query_multiple
+        pad_r = -(-nr // spec.ref_multiple) * spec.ref_multiple
+        # group by (pad_q, pad_r) via lexicographic sort, stable so pair
+        # order kept
+        order = np.lexsort((np.arange(len(ds)), pad_r, pad_q))
+        keys = pad_q[order] * (1 << 32) + pad_r[order]
+        boundaries = np.flatnonzero(np.diff(keys)) + 1
+        # each group in input order
+        groups = [np.sort(g) for g in np.split(order, boundaries)]
     buckets = []
     for g in groups:
-        g = np.sort(g)  # restore input order within the group
         q, r = int(pad_q[g[0]]), int(pad_r[g[0]])
         for s in range(0, len(g), spec.batch_pairs):
             chunk = g[s : s + spec.batch_pairs]
-            buckets.append(_make_bucket(ds, chunk, q, r, spec.pair_multiple))
+            with timer.on_bucket(len(buckets)), \
+                    timer.phase("memmgmt.gather"):
+                buckets.append(_make_bucket(ds, chunk, q, r,
+                                            spec.pair_multiple))
     return buckets

@@ -314,35 +314,38 @@ class AlignmentEngine:
         return align_pair(self.algorithm, self.params, ref, qry, pair_num=i,
                           engine="scalar", local_mode=self.local_mode)
 
-    def _dispatch(self, b: Bucket):
+    def _dispatch(self, b: Bucket, timer: PhaseTimer):
         """Upload one bucket's raw tokens shard by shard and enqueue each
         shard's fill -- and, with device traceback, its walk and
         compaction -- on its own device (distributed/sharding.py).  Returns
         a ShardedWalk for device traceback, else a list of (outs, done),
         one a shard: on CUDA, outs are pinned host tensors that an async
         D2H fills and `done` the event that marks the copies complete; on
-        CPU, the fill's own tensors and None."""
+        CPU, the fill's own tensors and None.  The uploads are
+        "dispatch.upload" spans of `timer`; the launches, and the copies
+        queued behind them, "dispatch.enqueue"."""
         outs = sharding.fill_sharded(
             self.mesh, self.algorithm, self.params,
             b.ref_tokens, b.qry_tokens, b.ref_len, b.qry_len,
             with_traceback=self.with_traceback, kernel=self.kernel,
-            stripe_s=self.stripe_s)
-        if self.device_tb:
-            scores, srow, scol, dirs = outs
-            # global start cells are the lengths, which the host knows
-            extras = ((scores, srow, scol) if self.algorithm.is_local
-                      else (scores,))
-            # the dirs die here, after the walk and compaction were queued
-            # behind them on the same stream
-            return sharding.walk_sharded_dispatch(
-                self.mesh, self.algorithm, self.params, dirs, srow, scol,
-                scores, self.stripe_s, extras=extras, walker=self.walker)
-        jobs = []
-        for k, dev in enumerate(self.mesh.devices):
-            shard = tuple(None if o is None else o[k] for o in outs)
-            with sharding.on_device(dev):
-                jobs.append(self._to_host(shard, dev))
-        return jobs
+            stripe_s=self.stripe_s, timer=timer)
+        with timer.phase("dispatch.enqueue"):
+            if self.device_tb:
+                scores, srow, scol, dirs = outs
+                # global start cells are the lengths, which the host knows
+                extras = ((scores, srow, scol) if self.algorithm.is_local
+                          else (scores,))
+                # the dirs die here, after the walk and compaction were
+                # queued behind them on the same stream
+                return sharding.walk_sharded_dispatch(
+                    self.mesh, self.algorithm, self.params, dirs, srow, scol,
+                    scores, self.stripe_s, extras=extras, walker=self.walker)
+            jobs = []
+            for k, dev in enumerate(self.mesh.devices):
+                shard = tuple(None if o is None else o[k] for o in outs)
+                with sharding.on_device(dev):
+                    jobs.append(self._to_host(shard, dev))
+            return jobs
 
     @staticmethod
     def _to_host(outs, device) -> tuple:
@@ -351,12 +354,14 @@ class AlignmentEngine:
                                    device)
         return host + (None,) * (len(outs) - len(host)), done
 
-    def _wait_fill(self, jobs) -> tuple:
-        """Wait for a bucket's fill copies and join its shards along the
-        batch axis (one shard: its tensors as they are)."""
-        for _, done in jobs:
-            if done is not None:
-                done.synchronize()
+    def _wait_fill(self, jobs, timer: PhaseTimer) -> tuple:
+        """Wait for a bucket's fill copies (a "kernel.wait" span of
+        `timer`) and join its shards along the batch axis (one shard: its
+        tensors as they are)."""
+        with timer.phase("kernel.wait"):
+            for _, done in jobs:
+                if done is not None:
+                    done.synchronize()
         if len(jobs) == 1:
             return jobs[0][0]
         axis = sharding.dirs_batch_axis(
@@ -387,24 +392,27 @@ class AlignmentEngine:
                                         and self.with_traceback):
             return
         seen: set[tuple] = set()
-        for b in self._buckets_of(ds):
+        timer = PhaseTimer()
+        for b in self._buckets_of(ds, timer):
             shape = (b.ref_tokens.shape, b.qry_tokens.shape)
             if shape in seen:
                 continue
             seen.add(shape)
-            job = self._dispatch(b)
+            job = self._dispatch(b, timer)
             if self.device_tb:
                 finalize_any(job, *self._finalize_args(b))
             else:
-                self._wait_fill(job)
+                self._wait_fill(job, timer)
         for dev in self.mesh.devices:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-    def _buckets_of(self, ds: PairDataset) -> list[Bucket]:
-        """Bucketize the kernel-eligible pairs with dataset-level ids."""
+    def _buckets_of(self, ds: PairDataset,
+                    timer: PhaseTimer | None = None) -> list[Bucket]:
+        """Bucketize the kernel-eligible pairs with dataset-level ids
+        (io/bucketing.py's spans in `timer`)."""
         main_idx = np.flatnonzero((ds.ref_len > 0) & (ds.qry_len > 0))
-        buckets = bucketize(ds.select(main_idx), self.bucket_spec)
+        buckets = bucketize(ds.select(main_idx), self.bucket_spec, timer)
         # bucket pair_ids index into the selection; remap to dataset ids
         for b in buckets:
             real = b.pair_ids >= 0
@@ -504,12 +512,21 @@ class AlignmentEngine:
                                     pair_scores=pair_scores)
         return EngineResult(results, timer, ds.num_cells)
 
-    def run(self, ds: PairDataset,
-            checkpoint_dir: str | None = None) -> EngineResult:
+    def run(self, ds: PairDataset, checkpoint_dir: str | None = None,
+            timer: PhaseTimer | None = None) -> EngineResult:
         """Align a dataset.  With checkpoint_dir set, each bucket's results
         are persisted after its traceback and already-checkpointed buckets
-        are skipped on re-run (batch-level resume)."""
-        timer = PhaseTimer()
+        are skipped on re-run (batch-level resume).
+
+        timer: the PhaseTimer the run's phases go to, as a batch of its
+        own (a new one by default); PhaseTimer(record=True) keeps the
+        spans.  Phases: memmgmt (.group, .gather), dispatch (.upload,
+        .enqueue), kernel (.wait, .convert), backtrack (.wait under device
+        traceback; .fill, .reduce, .endpoints, .leaves under Hirschberg)
+        and printing (.blocks, .finalize); a bucket's spans carry its id,
+        its index among the run's buckets."""
+        timer = timer or PhaseTimer()
+        timer.start_batch()
         collector = _BlockCollector() if self.output == "blocks" else None
         hirschberg = self.traceback_mode == "hirschberg" and self.with_traceback
         if checkpoint_dir:
@@ -533,19 +550,19 @@ class AlignmentEngine:
                 results = hirschberg_align_batch(
                     self.algorithm, self.params,
                     [ds.pair(i) for i in range(len(ds))],
-                    device=self.device)
+                    device=self.device, timer=timer)
             return self._finish_host(results, timer, ds, collector)
         # pairs with an empty side cannot enter the kernel (no DP interior);
         # they fall back to the oracle
         empty_idx = np.flatnonzero((ds.ref_len == 0) | (ds.qry_len == 0))
         with timer.phase("memmgmt"):
-            buckets = self._buckets_of(ds)
+            buckets = self._buckets_of(ds, timer)
 
         results: list[AlignmentResult] = []
-        pending: list[Bucket] = []
-        for b in buckets:
+        pending: list[tuple[int, Bucket]] = []  # (bucket id, bucket)
+        for k, b in enumerate(buckets):
             if not checkpoint_dir:
-                pending.append(b)
+                pending.append((k, b))
                 continue
             base = os.path.join(checkpoint_dir, self._bucket_key(b))
             if collector is not None:
@@ -553,13 +570,13 @@ class AlignmentEngine:
                 if part is not None:
                     collector.add_chunk(*part)
                 else:
-                    pending.append(b)
+                    pending.append((k, b))
                 continue
             restored = self._load_checkpoint(base + ".json")
             if restored is not None:
                 results.extend(restored)
             else:
-                pending.append(b)
+                pending.append((k, b))
 
         # Sliding-window dispatch (the V13 STREAM_BATCH_SIZE bound): at
         # most max_inflight buckets outstanding; the consumer waits on the
@@ -571,89 +588,94 @@ class AlignmentEngine:
         def _top_up():
             nonlocal next_up
             while next_up < len(pending) and len(inflight) < limit:
-                b = pending[next_up]
-                with timer.phase("dispatch"):
-                    inflight.append((b, self._dispatch(b)))
+                k, b = pending[next_up]
+                with timer.on_bucket(k), timer.phase("dispatch"):
+                    inflight.append((k, b, self._dispatch(b, timer)))
                 next_up += 1
 
         _top_up()
         while inflight:
-            b, job = inflight.popleft()
-            nb = b.num_real
-            if self.device_tb:
-                # the V8 move: the walk ran on the device behind the fill;
-                # wait for this bucket's events (later buckets keep running)
-                with timer.phase("backtrack"):
-                    fin = finalize_any(job, *self._finalize_args(b))
+            k, b, job = inflight.popleft()
+            with timer.on_bucket(k):
+                bucket_results = self._finish_bucket(b, job, timer,
+                                                     collector)
                 if collector is None:
-                    with timer.phase("backtrack"):
-                        sc, out_buf, out_lens = bucket_arrays_from_finalized(
-                            self.algorithm, b, self.params, fin)
-                        bucket_results = results_from_arrays(
-                            b.pair_ids, sc, out_buf, out_lens, nb)
-                else:
+                    results.extend(bucket_results)
+                if checkpoint_dir:
+                    base = os.path.join(checkpoint_dir, self._bucket_key(b))
                     with timer.phase("printing"):
-                        # fused native replay + format of the events; the
-                        # stream form goes through the arrays
-                        part = bucket_blocks_from_finalized(
-                            self.algorithm, b, self.params, fin)
-                        if part is not None:
-                            collector.add_chunk(*part)
+                        if collector is not None:
+                            self._save_blocks_checkpoint(
+                                base + ".npz", collector.parts[-1])
                         else:
-                            sc, out_buf, out_lens = \
-                                bucket_arrays_from_finalized(
-                                    self.algorithm, b, self.params, fin)
-                            collector.add_arrays(b.pair_ids[:nb], sc,
-                                                 out_buf, out_lens)
-            else:
-                with timer.phase("kernel"):
-                    # blocks only on this bucket; later fills keep running
-                    fill = fill_to_numpy(*self._wait_fill(job),
-                                         **self._layout)
-                if collector is not None and self.with_traceback:
-                    with timer.phase("backtrack"):
-                        arrays = traceback_bucket_arrays(
-                            self.algorithm, b, fill, self.params)
-                    with timer.phase("printing"):
-                        collector.add_arrays(b.pair_ids[:nb],
-                                             fill.scores[:nb], *arrays)
-                elif collector is not None:
-                    with timer.phase("printing"):
-                        collector.add_scores(b.pair_ids[:nb],
-                                             fill.scores[:nb])
-                else:
-                    with timer.phase("backtrack"):
-                        if self.with_traceback:
-                            bucket_results = traceback_bucket(
-                                self.algorithm, b, fill, self.params)
-                        else:
-                            bucket_results = [
-                                AlignmentResult(int(b.pair_ids[row]),
-                                                int(fill.scores[row]))
-                                for row in range(nb)
-                            ]
-            if collector is None:
-                results.extend(bucket_results)
-            if checkpoint_dir:
-                base = os.path.join(checkpoint_dir, self._bucket_key(b))
-                with timer.phase("printing"):
-                    if collector is not None:
-                        self._save_blocks_checkpoint(base + ".npz",
-                                                     collector.parts[-1])
-                    else:
-                        self._save_checkpoint(base + ".json", bucket_results)
+                            self._save_checkpoint(base + ".json",
+                                                  bucket_results)
             _top_up()  # refill the dispatch window
         with timer.phase("backtrack"):
             oracle = [self._oracle_fallback(ds, int(i)) for i in empty_idx]
         with timer.phase("printing"):
             if collector is not None:
                 collector.add_results(oracle)
-                blocks, pair_scores = collector.finalize()
+                with timer.phase("printing.finalize"):
+                    blocks, pair_scores = collector.finalize()
                 return EngineResult([], timer, ds.num_cells, blocks=blocks,
                                     pair_scores=pair_scores)
             results.extend(oracle)
             results.sort(key=lambda r: r.pair_num)
         return EngineResult(results, timer, ds.num_cells)
+
+    def _finish_bucket(self, b: Bucket, job, timer: PhaseTimer, collector):
+        """Wait for one dispatched bucket and take it through its
+        traceback into the collector; returns its AlignmentResults without
+        one (output="records"), else None."""
+        nb = b.num_real
+        if self.device_tb:
+            # the V8 move: the walk ran on the device behind the fill;
+            # wait for this bucket's events (later buckets keep running)
+            with timer.phase("backtrack"), timer.phase("backtrack.wait"):
+                fin = finalize_any(job, *self._finalize_args(b))
+            if collector is None:
+                with timer.phase("backtrack"):
+                    sc, out_buf, out_lens = bucket_arrays_from_finalized(
+                        self.algorithm, b, self.params, fin)
+                    return results_from_arrays(b.pair_ids, sc, out_buf,
+                                               out_lens, nb)
+            with timer.phase("printing"), timer.phase("printing.blocks"):
+                # fused native replay + format of the events; the
+                # stream form goes through the arrays
+                part = bucket_blocks_from_finalized(
+                    self.algorithm, b, self.params, fin)
+                if part is not None:
+                    collector.add_chunk(*part)
+                else:
+                    sc, out_buf, out_lens = bucket_arrays_from_finalized(
+                        self.algorithm, b, self.params, fin)
+                    collector.add_arrays(b.pair_ids[:nb], sc, out_buf,
+                                         out_lens)
+            return None
+        with timer.phase("kernel"):
+            # blocks only on this bucket; later fills keep running
+            host = self._wait_fill(job, timer)
+            with timer.phase("kernel.convert"):
+                fill = fill_to_numpy(*host, **self._layout)
+        if collector is not None and self.with_traceback:
+            with timer.phase("backtrack"):
+                arrays = traceback_bucket_arrays(self.algorithm, b, fill,
+                                                 self.params)
+            with timer.phase("printing"), timer.phase("printing.blocks"):
+                collector.add_arrays(b.pair_ids[:nb], fill.scores[:nb],
+                                     *arrays)
+            return None
+        if collector is not None:
+            with timer.phase("printing"), timer.phase("printing.blocks"):
+                collector.add_scores(b.pair_ids[:nb], fill.scores[:nb])
+            return None
+        with timer.phase("backtrack"):
+            if self.with_traceback:
+                return traceback_bucket(self.algorithm, b, fill, self.params)
+            return [AlignmentResult(int(b.pair_ids[row]),
+                                    int(fill.scores[row]))
+                    for row in range(nb)]
 
 
 def align_file(

@@ -1,42 +1,110 @@
-"""Phase timers and GCUPS accounting (tpu_align/runtime/profiler.py).
+"""Phase timers, GCUPS accounting and the launch counters
+(tpu_align/runtime/profiler.py).
 
 The reference accumulates per-phase microsecond buckets (memory management /
 kernel / backtracking / printing) with gettimeofday timers (c++/timing.cpp:6-23)
 and prints GCUPS = numCells / kernel_seconds * 1e-9 at exit
 (cuda/LNW/LinearNeedlemanWunschV19.cu:669-680).  Same model here, on
 time.perf_counter; a copy because the JAX package's runtime/__init__
-imports its engine, which imports jax.  The port adds the launch counts of
-the engine-path kernels (reset_launch_counts, launch_counts), which show
-that a run went through the kernels.
+imports its engine, which imports jax.
+
+The port nests phases: a sub-span's name is its parent's, a dot and its
+own ("memmgmt.gather" inside "memmgmt"), and every span of the program
+goes through PhaseTimer.phase.  A recording timer (record=True; the CLI's
+-trace FILE, written by chrome_trace) also keeps each span.  It adds the
+launch counts of the engine-path kernels (reset_launch_counts,
+launch_counts), which show that a run went through the kernels, and what
+each fill launch held (count_fill).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
+from typing import NamedTuple
+
+import numpy as np
+
+
+class Span(NamedTuple):
+    """One recorded span: its name, its ends on time.monotonic_ns(), the
+    name of the span open around it, and the batch and bucket it worked
+    for (None outside a bucket)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: str | None
+    batch: int
+    bucket: int | None
 
 
 class PhaseTimer:
-    """Accumulating wall-clock phase buckets."""
+    """Accumulating wall-clock phase buckets.
 
-    def __init__(self):
+    `seconds` keeps every name; `total` sums the top-level (dotless)
+    phases alone, so a sub-span is never counted twice, and report()
+    lists each sub-span under its parent.
+
+    record=True keeps each span in `spans` as well (a Span), and `clocks`
+    holds the realtime and monotonic clocks read once, as the recording
+    began, to put the spans on another clock's trace.  `batch` is the run
+    the spans belong to (AlignmentEngine.run calls start_batch) and
+    `bucket` the bucket, set around a bucket's work by on_bucket.  Without
+    record a phase costs two clock reads and a dict add."""
+
+    def __init__(self, record: bool = False):
         self.seconds: dict[str, float] = defaultdict(float)
+        self.spans: list[Span] | None = [] if record else None
+        self.clocks = ({"realtime": time.time_ns(),
+                        "monotonic": time.monotonic_ns()} if record else None)
+        self.batch = -1
+        self.bucket: int | None = None
+        self._open: list[str] = []
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
+        if self.spans is None:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+            return
+        parent = self._open[-1] if self._open else None
+        self._open.append(name)
+        t0 = time.monotonic_ns()
         try:
             yield
         finally:
-            self.seconds[name] += time.perf_counter() - t0
+            t1 = time.monotonic_ns()
+            self._open.pop()
+            self.seconds[name] += (t1 - t0) / 1e9
+            self.spans.append(Span(name, t0, t1, parent, self.batch,
+                                   self.bucket))
+
+    @contextlib.contextmanager
+    def on_bucket(self, bucket: int):
+        """Spans inside carry this bucket id."""
+        was, self.bucket = self.bucket, bucket
+        try:
+            yield
+        finally:
+            self.bucket = was
+
+    def start_batch(self) -> None:
+        """Spans from here on belong to the next batch (0 first)."""
+        self.batch += 1
+        self.bucket = None
 
     def add(self, name: str, secs: float) -> None:
         self.seconds[name] += secs
 
     @property
     def total(self) -> float:
-        return sum(self.seconds.values())
+        return sum(s for name, s in self.seconds.items() if "." not in name)
 
     def gcups(self, num_cells: int, phase: str = "kernel") -> float:
         secs = self.seconds.get(phase, 0.0)
@@ -44,13 +112,103 @@ class PhaseTimer:
             return 0.0
         return num_cells / secs / 1e9
 
-    def report(self) -> str:
-        lines = [
-            f"{name:>12}: {secs * 1e6:14.1f} us"
-            for name, secs in sorted(self.seconds.items())
-        ]
-        lines.append(f"{'total':>12}: {self.total * 1e6:14.1f} us")
+    def report(self, sub_spans: bool = True) -> str:
+        """A line a phase, each sub-span under its parent (sub_spans=False:
+        the top-level phases alone, the reference's timer buckets)."""
+        names = sorted((n for n in self.seconds if sub_spans or "." not in n),
+                       key=lambda n: n.split("."))
+        width = max([12, *map(len, names)])
+        lines = [f"{name:>{width}}: {self.seconds[name] * 1e6:14.1f} us"
+                 for name in names]
+        lines.append(f"{'total':>{width}}: {self.total * 1e6:14.1f} us")
         return "\n".join(lines)
+
+
+def chrome_trace(timer: PhaseTimer, counts: dict) -> dict:
+    """A recording timer's spans, and `counts` (launch_counts()), as a
+    Chrome trace (chrome://tracing, Perfetto): a complete event a span,
+    its ts and dur in us on time.monotonic_ns(), then one counter event
+    of the counts at the last span's end.  otherData names the clock and
+    holds the clock pair read as the recording began, which maps the
+    spans onto a torch.profiler trace of the same process
+    (benchmarks/trace.py clock_offset)."""
+    if timer.spans is None:
+        raise ValueError("the timer did not record its spans "
+                         "(PhaseTimer(record=True))")
+    pid = os.getpid()
+    events = [{"name": s.name, "cat": "phase", "ph": "X", "pid": pid,
+               "tid": 0, "ts": s.start_ns / 1e3,
+               "dur": (s.end_ns - s.start_ns) / 1e3,
+               "args": {"parent": s.parent, "batch": s.batch,
+                        "bucket": s.bucket}} for s in timer.spans]
+    end = max((s.end_ns for s in timer.spans),
+              default=timer.clocks["monotonic"])
+    events.append({"name": "launches", "cat": "counter", "ph": "C",
+                   "pid": pid, "tid": 0, "ts": end / 1e3, "args": counts})
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": {"clock": "monotonic", "clocks": dict(timer.clocks),
+                          "counts": counts}}
+
+
+# rows of one band of the row sweep's wavefront (csrc/rowscan_fill.cu)
+BAND_ROWS = 128
+# what the fill launches held since the last reset; count_fill adds to it
+FILL_KEYS = ("fill_counted", "fill_pairs", "fill_warps", "fill_cells",
+             "fill_chain_cells")
+_fill = dict.fromkeys(FILL_KEYS, 0)
+
+
+def band_cells(rlen, qlen, band: int) -> np.ndarray:
+    """Each pair's cells (i, j), 1 <= i <= qlen, 1 <= j <= rlen, with
+    |i - j| < band: the cells the banded fill computes.  The whole
+    matrix less its two corners past the band, each a sum of
+    max(0, a - k + 1) over k."""
+    rlen = np.asarray(rlen, np.int64)
+    qlen = np.asarray(qlen, np.int64)
+
+    def corner(a, n):
+        p = np.clip(np.minimum(n, a), 0, None)
+        return p * (2 * a - p + 1) // 2
+
+    return (rlen * qlen - corner(qlen - band, rlen)
+            - corner(rlen - band, qlen))
+
+
+def fill_work(kernel: str, rlen, qlen, band: int | None = None) -> dict:
+    """What one fill launch over pairs of these lengths holds, by
+    FILL_KEYS: the launch (1); its real pairs, those with cells to fill
+    (a bucket's padding rows have none); the warps it gives them; their
+    cells, rlen x qlen (the banded fill's: those in `band`); and the cells
+    of its largest pair, the longest chain of work one warp takes.
+
+    Warps by kernel: "stagger" (B1, and its last-row variant) and
+    "banded" (B3) run one warp a pair; "rowscan" (B2's band wavefront,
+    and its last-row mode) one warp a 128-row band, ceil(qlen / 128) a
+    pair, which persistent warps take in turn (the card holds fewer at
+    once on large launches)."""
+    rlen = np.asarray(rlen, np.int64)
+    qlen = np.asarray(qlen, np.int64)
+    cells = band_cells(rlen, qlen, band) if kernel == "banded" \
+        else rlen * qlen
+    real = cells > 0
+    pairs = int(np.count_nonzero(real))
+    if kernel == "rowscan":
+        warps = int(np.sum(-(-qlen[real] // BAND_ROWS)))
+    elif kernel in ("stagger", "banded"):
+        warps = pairs
+    else:
+        raise ValueError(f"unknown fill kernel {kernel!r}")
+    return {"fill_counted": 1, "fill_pairs": pairs, "fill_warps": warps,
+            "fill_cells": int(cells.sum()),
+            "fill_chain_cells": int(cells.max(initial=0))}
+
+
+def count_fill(kernel: str, rlen, qlen, band: int | None = None) -> None:
+    """Add one fill launch to the counters (fill_work): called where the
+    launch is made, from the lengths the host holds, never from a device
+    tensor."""
+    for key, value in fill_work(kernel, rlen, qlen, band).items():
+        _fill[key] += value
 
 
 def _counter_modules():
@@ -61,20 +219,23 @@ def _counter_modules():
 
 
 def reset_launch_counts() -> None:
-    """Set every engine-path kernel wrapper's launch count to 0 (the
-    counts rise only where a wrapper launches its CUDA kernel, never for
-    a plain version on CPU tensors)."""
+    """Set every engine-path kernel wrapper's launch count, and the fill
+    counters, to 0 (the counts rise only where a wrapper launches its
+    CUDA kernel, never for a plain version on CPU tensors)."""
     banded, fill, stagger, device, hirschberg, walk_kernel = \
         _counter_modules()
     stagger.launches = banded.launches = fill.launches = 0
     walk_kernel.walk_launches = walk_kernel.compact_launches = 0
     fill.last_rows_launches = stagger.last_rows_launches = 0
     hirschberg.launches = device.stream_finalized = 0
+    _fill.update(dict.fromkeys(FILL_KEYS, 0))
 
 
 def launch_counts() -> dict:
-    """The engine-path kernels' launch counts since the last reset, and
-    the buckets whose device walk was finalized in the stream form."""
+    """The engine-path kernels' launch counts since the last reset, the
+    buckets whose device walk was finalized in the stream form, and the
+    fill counters (FILL_KEYS: the fill launches AlignmentEngine and
+    Hirschberg made, as count_fill counts them)."""
     banded, fill, stagger, device, hirschberg, walk_kernel = \
         _counter_modules()
     return {"stagger_fill": stagger.launches, "banded_fill": banded.launches,
@@ -84,4 +245,5 @@ def launch_counts() -> dict:
             "rowscan_last_rows": fill.last_rows_launches,
             "stagger_last_rows": stagger.last_rows_launches,
             "split_reduce": hirschberg.launches,
-            "stream": device.stream_finalized}
+            "stream": device.stream_finalized,
+            **_fill}

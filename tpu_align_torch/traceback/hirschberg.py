@@ -33,7 +33,6 @@ runs.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import numpy as np
 import torch
@@ -44,6 +43,7 @@ from tpu_align_torch.kernels import _build
 from tpu_align_torch.kernels import fill as rowscan
 from tpu_align_torch.kernels import stagger
 from tpu_align_torch.kernels.common import NEG
+from tpu_align_torch.runtime import profiler
 
 GAP = "_"
 
@@ -54,24 +54,40 @@ GAP = "_"
 LAST_ROWS_KERNEL = "auto"
 
 launches = 0  # split_reduce kernel launches
+# the recursion's phases, each a "backtrack.<phase>" span
+PHASES = ("fill", "reduce", "endpoints", "leaves")
 # per card: split_reduce's state (its keys and ticket counters), zeroed
 # once; every launch leaves it at 0 again (csrc/split_reduce.cu), so
 # launches on one stream at a time, as the recursion makes them, share it
 _state: dict = {}
 
 
+def _last_rows_kernel() -> str:
+    """The split levels' last-row fill, "rowscan" or "stagger", by
+    LAST_ROWS_KERNEL."""
+    pick = "rowscan" if LAST_ROWS_KERNEL == "auto" else LAST_ROWS_KERNEL
+    if pick not in ("rowscan", "stagger"):
+        raise ValueError(f"unknown LAST_ROWS_KERNEL {LAST_ROWS_KERNEL!r}")
+    return pick
+
+
 def fill_last_rows_async(algorithm, params, refs, qrys, rlen, qlen,
                          open_top=None):
     """The split level's last-row fill on the tensors' device, by
     LAST_ROWS_KERNEL."""
-    pick = "rowscan" if LAST_ROWS_KERNEL == "auto" else LAST_ROWS_KERNEL
-    if pick == "stagger":
+    if _last_rows_kernel() == "stagger":
         return stagger.fill_stagger_last_rows_async(
             algorithm, params, refs, qrys, rlen, qlen, open_top=open_top)
-    if pick != "rowscan":
-        raise ValueError(f"unknown LAST_ROWS_KERNEL {LAST_ROWS_KERNEL!r}")
     return rowscan.fill_last_rows_async(algorithm, params, refs, qrys, rlen,
                                         qlen, open_top=open_top)
+
+
+def _count_fill(kernel: str, probs, device) -> None:
+    """Count a fill launch over these (ref_tokens, qry_tokens) problems
+    (profiler.count_fill) when it ran on a card."""
+    if device.type == "cuda":
+        profiler.count_fill(kernel, [p[0].size for p in probs],
+                            [p[1].size for p in probs])
 
 
 def split_reduce_reference(hlast, flast, fhb, bhb, nn, go):
@@ -147,28 +163,6 @@ def split_reduce(hlast, flast, fhb, bhb, nn, go):
     return out
 
 
-class _Phases:
-    """Seconds of a run's phases, accumulated into `seconds` when it is a
-    dict; on the card each phase ends with a synchronise, so the device
-    time of its kernels lands in it."""
-
-    def __init__(self, device: torch.device, seconds: dict | None):
-        self.device = device
-        self.seconds = seconds
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        if self.seconds is None:
-            yield
-            return
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.seconds[name] = (self.seconds.get(name, 0.0)
-                              + time.perf_counter() - t0)
-
-
 def _tokens(s: str) -> np.ndarray:
     return np.frombuffer(s.encode("ascii"), np.uint8)
 
@@ -212,7 +206,7 @@ def _split_reduce(hlast, flast, fhb, bhb, nn, go, device):
     return tuple(out.cpu().numpy())
 
 
-def _split_level(params, subs, device, timer):
+def _split_level(params, subs, device, phase):
     """Split every open subproblem at its query midrow.
 
     subs: list of (ref_t, qry_t, (qi, qj, ri, rj)) -- possibly spanning
@@ -227,22 +221,23 @@ def _split_level(params, subs, device, timer):
         mids.append(mid)
         probs.append((ref_t[ri:rj], qry_t[qi:mid]))
         probs.append((ref_t[ri:rj][::-1].copy(), qry_t[mid:qj][::-1].copy()))
-    with timer.phase("fill"):
+    with phase("fill"):
         _, hlast, _ = fill_last_rows_async(
             Algorithm.LNW, params, *_batch_problems(probs, device))
+    _count_fill(_last_rows_kernel(), probs, device)
     g = params.gap
     # column 0 border is analytic: H[qlen][0] = qlen * gap
     fhb = [(mids[k] - s[2][0]) * g for k, s in enumerate(subs)]
     bhb = [(s[2][1] - mids[k]) * g for k, s in enumerate(subs)]
     nn = [s[2][3] - s[2][2] for s in subs]
-    with timer.phase("reduce"):
+    with phase("reduce"):
         jh, _, _, _ = _split_reduce(hlast, None, fhb, bhb, nn,
                                     np.zeros(len(subs)), device)
     splits = [subs[k][2][2] + int(jh[k]) for k in range(len(subs))]
     return mids, splits
 
 
-def _leaf_lines_batch(params, leaves, device, timer):
+def _leaf_lines_batch(params, leaves, device, phase):
     """Align leaf segments -- (ref_t, qry_t, (qi, qj, ri, rj)) from any
     number of pairs -- with ONE run of the port's engine on `device`
     (fill + packed-dirs host walk); returns the per-leaf 3-tuples in input
@@ -264,7 +259,7 @@ def _leaf_lines_batch(params, leaves, device, timer):
         else:
             pairs.append((idx, rseg, qseg))
     if pairs:
-        with timer.phase("leaves"):
+        with phase("leaves"):
             ds = PairDataset.from_pairs([(r, q) for _, r, q in pairs])
             eng = AlignmentEngine(Algorithm.LNW, params, device=device)
             res = eng.run(ds).results  # sorted by pair_num = position
@@ -273,7 +268,7 @@ def _leaf_lines_batch(params, leaves, device, timer):
     return [out[i] for i in range(len(leaves))]
 
 
-def _global_lines_batch(params, seqs, leaf_q, device, timer):
+def _global_lines_batch(params, seqs, leaf_q, device, phase):
     """Hirschberg recursion for global LNW alignments of MANY pairs.
 
     seqs: list of (ref_t, qry_t).  Level-synchronous across pairs: every
@@ -299,7 +294,7 @@ def _global_lines_batch(params, seqs, leaf_q, device, timer):
             break
         subs = [(seqs[p][0], seqs[p][1], worklists[p][i][1])
                 for p, i in open_refs]
-        mids, splits = _split_level(params, subs, device, timer)
+        mids, splits = _split_level(params, subs, device, phase)
         # replace back-to-front within each pair so indices stay valid
         for (p, i), mid, js in sorted(zip(open_refs, mids, splits),
                                       key=lambda t: (t[0][0], -t[0][1])):
@@ -312,7 +307,7 @@ def _global_lines_batch(params, seqs, leaf_q, device, timer):
         (seqs[p][0], seqs[p][1], e)
         for p, items in enumerate(worklists) for _, e in items
     ]
-    lines = _leaf_lines_batch(params, leaves, device, timer)
+    lines = _leaf_lines_batch(params, leaves, device, phase)
     out = []
     pos = 0
     for items in worklists:
@@ -362,7 +357,7 @@ def _one_row_lines(params, rseg, qc, tb, te):
     return GAP + rstr, " " * (n + 1), qch + GAP * n
 
 
-def _affine_split_level(params, subs, device, timer):
+def _affine_split_level(params, subs, device, phase):
     """Myers-Miller split for every open (qi, qj, ri, rj, tb, te).
 
     subs: list of (ref_t, qry_t, sub6) -- possibly spanning different
@@ -381,10 +376,11 @@ def _affine_split_level(params, subs, device, timer):
         opens.append(tb)
         probs.append((ref_t[ri:rj][::-1].copy(), qry_t[mid:qj][::-1].copy()))
         opens.append(te)
-    with timer.phase("fill"):
+    with phase("fill"):
         _, hlast, flast = fill_last_rows_async(
             Algorithm.ANW, params, *_batch_problems(probs, device),
             open_top=_to(np.array(opens, np.int32), device))
+    _count_fill(_last_rows_kernel(), probs, device)
     # border column j = 0 is one vertical gap from the corner: it IS
     # the F state there and opens at the boundary credit; tot_f counts
     # the bridged gap's open once (-go in the device combine).  The
@@ -392,7 +388,7 @@ def _affine_split_level(params, subs, device, timer):
     fhb = [s[2][4] + ((s[2][0] + s[2][1]) // 2 - s[2][0]) * ge for s in subs]
     bhb = [s[2][5] + (s[2][1] - (s[2][0] + s[2][1]) // 2) * ge for s in subs]
     nns = [s[2][3] - s[2][2] for s in subs]
-    with timer.phase("reduce"):
+    with phase("reduce"):
         jhs, mhs, jfs, mfs = _split_reduce(hlast, flast, fhb, bhb, nns,
                                            np.full(len(subs), go), device)
     pieces = []
@@ -415,7 +411,7 @@ def _affine_split_level(params, subs, device, timer):
     return pieces
 
 
-def _affine_lines_batch(params, seqs, leaf_q, device, timer):
+def _affine_lines_batch(params, seqs, leaf_q, device, phase):
     """Myers-Miller recursion for global ANW alignments of MANY pairs;
     level-synchronous across pairs like _global_lines_batch."""
     go = params.gap_open
@@ -452,7 +448,7 @@ def _affine_lines_batch(params, seqs, leaf_q, device, timer):
             break
         subs = [(seqs[p][0], seqs[p][1], worklists[p][i][1])
                 for p, i in open_refs]
-        pieces = _affine_split_level(params, subs, device, timer)
+        pieces = _affine_split_level(params, subs, device, phase)
         for (p, i), piece in sorted(zip(open_refs, pieces),
                                     key=lambda t: (t[0][0], -t[0][1])):
             ref_t, qry_t = seqs[p]
@@ -469,7 +465,7 @@ def _affine_lines_batch(params, seqs, leaf_q, device, timer):
         from tpu_align_torch.io.dataset import PairDataset
         from tpu_align_torch.runtime.engine import AlignmentEngine
 
-        with timer.phase("leaves"):
+        with phase("leaves"):
             ds = PairDataset.from_pairs([
                 (_text(seqs[p][0][ri:rj]), _text(seqs[p][1][qi:qj]))
                 for p, i in eng_refs
@@ -489,15 +485,16 @@ def _affine_lines_batch(params, seqs, leaf_q, device, timer):
     return out
 
 
-def _local_endpoints_batch(params, seqs, device, timer):
+def _local_endpoints_batch(params, seqs, device, phase):
     """Locate a co-optimal local path's end and start cells for MANY pairs
     with two batched scores-only row-sweep fills (one forward fill for all
     pairs; one reversed fill over each end cell's prefix).  Returns a list
     of (score, (sr, er, sc, ec) | None)."""
-    with timer.phase("endpoints"):
+    with phase("endpoints"):
         sc, er, ec, _ = rowscan.fill_bucket_async(
             Algorithm.LSW, params, *_batch_problems(list(seqs), device),
             with_traceback=False)
+        _count_fill("rowscan", seqs, device)
         scores, ers, ecs = (t.cpu().numpy().astype(int)
                             for t in (sc, er, ec))
     n = len(seqs)
@@ -507,10 +504,11 @@ def _local_endpoints_batch(params, seqs, device, timer):
         return out
     rev = [(seqs[k][0][: ecs[k]][::-1].copy(),
             seqs[k][1][: ers[k]][::-1].copy()) for k in live]
-    with timer.phase("endpoints"):
+    with phase("endpoints"):
         sc2, rr, rc, _ = rowscan.fill_bucket_async(
             Algorithm.LSW, params, *_batch_problems(rev, device),
             with_traceback=False)
+        _count_fill("rowscan", rev, device)
         sc2, rr, rc = (t.cpu().numpy().astype(int) for t in (sc2, rr, rc))
     for j, k in enumerate(live):
         if int(sc2[j]) != int(scores[k]):  # suffix max == the global max
@@ -549,6 +547,7 @@ def hirschberg_align_batch(
     leaf_q: int = 128,
     device: str | torch.device = "cuda",
     phase_seconds: dict | None = None,
+    timer: profiler.PhaseTimer | None = None,
 ) -> list[AlignmentResult]:
     """Align MANY pairs with no direction storage, level-batched across
     pairs: every recursion depth's open subproblems -- of all pairs --
@@ -564,9 +563,14 @@ def hirschberg_align_batch(
     positional).  leaf_q: subproblems with at most this many query rows
     run through the engine's packed-dirs fill and walk.  device: where
     the fills and the combine run ("cpu" runs their plain versions).
-    phase_seconds, when given, accumulates the seconds of the "fill",
-    "reduce", "endpoints" and "leaves" phases (synchronising the card at
-    each phase's end); the rest of the wall is the host recursion."""
+    timer: the PhaseTimer the phases are spans of, "backtrack.fill",
+    "backtrack.reduce", "backtrack.endpoints" and "backtrack.leaves"
+    (AlignmentEngine passes its own, inside its "backtrack"); nothing
+    waits for the card at their ends.  phase_seconds, when given,
+    accumulates the seconds of those spans under "fill", "reduce",
+    "endpoints" and "leaves", and then the card is synchronised at each
+    one's end, so its kernels' time lands in it; the rest of the wall is
+    the host recursion."""
     params = params or AlignmentParams()
     if algorithm is Algorithm.BSW:
         raise NotImplementedError(
@@ -576,7 +580,17 @@ def hirschberg_align_batch(
     if algorithm.is_affine and params.gap_open > 0:
         raise ValueError("ANW requires gap_open <= 0")
     device = torch.device(device)
-    timer = _Phases(device, phase_seconds)
+    timer = timer if timer is not None else profiler.PhaseTimer()
+    sync = phase_seconds is not None and device.type == "cuda"
+    before = {n: timer.seconds.get(f"backtrack.{n}", 0.0) for n in PHASES}
+
+    @contextlib.contextmanager
+    def phase(name):
+        with timer.phase(f"backtrack.{name}"):
+            yield
+            if sync:
+                torch.cuda.synchronize(device)
+
     if pair_nums is None:
         pair_nums = list(range(len(pairs)))
     # The DP problem is symmetric under swapping the two sequences (the
@@ -599,35 +613,42 @@ def hirschberg_align_batch(
             r, q = q, r
         return AlignmentResult(pair_nums[k], score, r, m, q)
 
-    if algorithm is Algorithm.ANW:
-        lines = _affine_lines_batch(params, seqs, leaf_q, device, timer)
-        return [result(k, _rescore_affine(params, r, q), r, m, q)
+    try:
+        if algorithm is Algorithm.ANW:
+            lines = _affine_lines_batch(params, seqs, leaf_q, device, phase)
+            return [result(k, _rescore_affine(params, r, q), r, m, q)
+                    for k, (r, m, q) in enumerate(lines)]
+        if algorithm is Algorithm.LSW:
+            ends = _local_endpoints_batch(params, seqs, device, phase)
+            seg_idx = [k for k, (_, seg) in enumerate(ends) if seg is not None]
+            seg_seqs = []
+            for k in seg_idx:
+                sr, er, sc, ec = ends[k][1]
+                ref_t, qry_t = seqs[k]
+                seg_seqs.append((ref_t[sc:ec], qry_t[sr:er]))
+            seg_lines = (_global_lines_batch(params, seg_seqs, leaf_q, device,
+                                             phase) if seg_seqs else [])
+            out = [result(k, score) for k, (score, _) in enumerate(ends)]
+            for k, (r, m, q) in zip(seg_idx, seg_lines):
+                # the score comes from the forward fill: reconcile the emitted
+                # segment against it, so a regression fails loudly
+                got = _rescore(params, r, q)
+                if got != ends[k][0]:
+                    raise RuntimeError(
+                        f"hirschberg LSW rescore mismatch (pair "
+                        f"{pair_nums[k]}): lines score {got}, fill says "
+                        f"{ends[k][0]}")
+                out[k] = result(k, ends[k][0], r, m, q)
+            return out
+        lines = _global_lines_batch(params, seqs, leaf_q, device, phase)
+        return [result(k, _rescore(params, r, q), r, m, q)
                 for k, (r, m, q) in enumerate(lines)]
-    if algorithm is Algorithm.LSW:
-        ends = _local_endpoints_batch(params, seqs, device, timer)
-        seg_idx = [k for k, (_, seg) in enumerate(ends) if seg is not None]
-        seg_seqs = []
-        for k in seg_idx:
-            sr, er, sc, ec = ends[k][1]
-            ref_t, qry_t = seqs[k]
-            seg_seqs.append((ref_t[sc:ec], qry_t[sr:er]))
-        seg_lines = (_global_lines_batch(params, seg_seqs, leaf_q, device,
-                                         timer) if seg_seqs else [])
-        out = [result(k, score) for k, (score, _) in enumerate(ends)]
-        for k, (r, m, q) in zip(seg_idx, seg_lines):
-            # the score comes from the forward fill: reconcile the emitted
-            # segment against it, so a regression fails loudly
-            got = _rescore(params, r, q)
-            if got != ends[k][0]:
-                raise RuntimeError(
-                    f"hirschberg LSW rescore mismatch (pair "
-                    f"{pair_nums[k]}): lines score {got}, fill says "
-                    f"{ends[k][0]}")
-            out[k] = result(k, ends[k][0], r, m, q)
-        return out
-    lines = _global_lines_batch(params, seqs, leaf_q, device, timer)
-    return [result(k, _rescore(params, r, q), r, m, q)
-            for k, (r, m, q) in enumerate(lines)]
+    finally:
+        if phase_seconds is not None:
+            for n in PHASES:
+                if f"backtrack.{n}" in timer.seconds:
+                    phase_seconds[n] = (phase_seconds.get(n, 0.0) - before[n]
+                                        + timer.seconds[f"backtrack.{n}"])
 
 
 def _rescore(params, ref_line: str, qry_line: str) -> int:
