@@ -960,6 +960,38 @@ def test_fill_counters_equal_the_buckets(cuda_device):
     assert counts["fill_chain_cells"] == sum(int(c.max()) for c in cells)
 
 
+def test_auto_puts_few_long_pairs_on_the_band_wavefront(cuda_device):
+    """kernel="auto", scores only: 8 pairs of about 16 kbp (HiFi-like, a
+    bucket or a few, each far from filling the card one warp a pair) go
+    to the band wavefront, and their scores equal kernel="stagger"'s; a
+    2,048 x 250 bp bucket stays on the stagger fill."""
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+
+    def run(ds, kernel):
+        engine = AlignmentEngine(Algorithm.LNW, device="cuda",
+                                 with_traceback=False, output="blocks",
+                                 kernel=kernel)
+        engine.warmup(ds)
+        reset_launch_counts()
+        out = engine.run(ds)
+        torch.cuda.synchronize()
+        return out.scores(), launch_counts(), len(engine._buckets_of(ds))
+
+    long = synthetic_dataset(8, uniform_len=16_384, seed=18,
+                             sub_rate=0.004, indel_rate=0.003)
+    scores, counts, buckets = run(long, "auto")
+    assert counts["rowscan_fill"] == buckets > 0
+    assert counts["stagger_fill"] == 0
+    want, counts, _ = run(long, "stagger")
+    assert counts["stagger_fill"] == buckets and counts["rowscan_fill"] == 0
+    np.testing.assert_array_equal(scores, want)
+    reads = synthetic_dataset(2048, uniform_len=250, seed=18, sub_rate=0.05,
+                              indel_rate=0.0)
+    _, counts, buckets = run(reads, "auto")
+    assert counts["stagger_fill"] == buckets == 1
+    assert counts["rowscan_fill"] == 0
+
+
 @pytest.mark.parametrize("name", dpx.OPS)
 def test_dpx_kernel_matches_plain_version(cuda_device, name):
     """Random words and every triple of edge words through the kernel

@@ -67,10 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-kernel", default="auto",
                    choices=["auto", "stagger", "rowscan"],
                    help="fill formulation for lnw, lsw and anw: stagger "
-                        "(anti-diagonal, one thread per pair) or rowscan "
-                        "(row sweep with a prefix max, one thread block "
-                        "per pair; host traceback); auto = stagger; bsw "
-                        "always takes the banded fill")
+                        "(anti-diagonal, one warp a pair) or rowscan (the "
+                        "band wavefront, one warp a 128-row band; host "
+                        "traceback); auto = rowscan for a scores-only "
+                        "bucket of long pairs (8+ bands, under 16 pairs a "
+                        "SM), else stagger; bsw always takes the banded "
+                        "fill")
     p.add_argument("-stripe", type=int, default=0, metavar="S",
                    help="stagger stripe width: query rows per stripe of "
                         "the direction layout; 0 = 32")

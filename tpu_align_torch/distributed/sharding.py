@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -36,7 +37,13 @@ from tpu_align_torch.kernels.stagger import STRIPE_S, fill_stagger_bucket_async
 from tpu_align_torch.runtime import profiler
 from tpu_align_torch.traceback import device as td
 
-KERNELS = ("stagger", "rowscan", "banded")
+KERNELS = ("auto", "stagger", "rowscan", "banded")
+# the H100's SMs: a CPU shard, which runs the plain versions, picks its
+# fill as that card would, so CPU runs take the card's code paths
+CPU_SMS = 132
+# pick_fill's crossover, measured on the H100 (PERF.md section 7)
+RULE_MIN_BANDS = 8
+RULE_MAX_PAIRS_PER_SM = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,11 +118,60 @@ def shard_rows(batch: int, n: int) -> list[slice]:
     return [slice(k * per, (k + 1) * per) for k in range(n)]
 
 
+def pick_fill(algorithm: Algorithm, with_traceback: bool, qry_width: int,
+              pairs: int, sms: int) -> str:
+    """The fill kernel="auto" gives one shard's bucket: "banded" for BSW;
+    the band wavefront, "rowscan", for a scores-only fill of pairs of at
+    least RULE_MIN_BANDS 128-row bands (qry_width padded query rows),
+    fewer than RULE_MAX_PAIRS_PER_SM a SM, where it led the stagger fill
+    at every pair count measured on the H100 (PERF.md section 7); else
+    "stagger", which leads on short pairs that fill the card one warp a
+    pair, and which takes every fill with direction words (the layout the
+    walks, the host decoders and the engine's joins expect).  pairs
+    counts the shard's real pairs, sms its device's SMs."""
+    if algorithm.is_banded:
+        return "banded"
+    if with_traceback:
+        return "stagger"
+    bands = -(-qry_width // profiler.BAND_ROWS)
+    if bands >= RULE_MIN_BANDS and pairs < RULE_MAX_PAIRS_PER_SM * sms:
+        return "rowscan"
+    return "stagger"
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The SMs of a shard's device (CPU_SMS for a CPU shard)."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return CPU_SMS
+
+
+def shard_kernels(mesh: PairsMesh, algorithm: Algorithm,
+                  with_traceback: bool, kernel: str, qry_width: int,
+                  ref_len, qry_len) -> list[str]:
+    """The fill each shard of a bucket takes: `kernel`, "banded" for BSW,
+    and under "auto" pick_fill's choice from the shard's real pairs (both
+    sides non-empty), the bucket's padded query rows and its device's
+    SMs.  ref_len and qry_len are the bucket's host lengths."""
+    if algorithm.is_banded:
+        kernel = "banded"
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    rows = shard_rows(len(ref_len), mesh.size)
+    if kernel != "auto":
+        return [kernel] * len(rows)
+    real = (np.asarray(ref_len) > 0) & (np.asarray(qry_len) > 0)
+    return [pick_fill(algorithm, with_traceback, qry_width,
+                      int(np.count_nonzero(real[r])), sm_count(dev))
+            for dev, r in zip(mesh.devices, rows)]
+
+
 def dirs_batch_axis(kernel: str) -> int:
     """The batch axis of a fill's direction words: 3 for the stagger
-    layout (stripes, W, S, B), 1 for the row sweep's word-major (MW, B, N)
-    and the banded (MW, B, K8) layouts."""
-    return 3 if kernel == "stagger" else 1
+    layout (stripes, W, S, B), which kernel="auto" writes, 1 for the row
+    sweep's word-major (MW, B, N) and the banded (MW, B, K8) layouts."""
+    return 1 if kernel in ("rowscan", "banded") else 3
 
 
 def on_device(device: torch.device):
@@ -151,9 +207,11 @@ def fill_sharded(
     per-shard tensors on the shards' devices, enqueued on each device's
     current stream (nothing waits; a CPU shard runs the plain version).
     kernel selects the fill ("stagger" default, "rowscan", or "banded" --
-    forced for the banded aligner); stripe_s the stagger stripe width
-    (dirs layout (stripes, W, stripe_s, B) -- the walk must be told the
-    same value, which the engine guarantees).
+    forced for the banded aligner); "auto" picks one a shard by its shape
+    (pick_fill: the shard's real pairs, its padded query rows and its
+    device's SMs), the stagger fill wherever dirs are written.  stripe_s
+    is the stagger stripe width (dirs layout (stripes, W, stripe_s, B) --
+    the walk must be told the same value, which the engine guarantees).
 
     Each shard's upload is a "dispatch.upload" span of `timer` (a
     runtime.profiler.PhaseTimer), its fill's launch a "dispatch.enqueue";
@@ -163,27 +221,25 @@ def fill_sharded(
         timer = profiler.PhaseTimer()
     if stripe_s is None:
         stripe_s = STRIPE_S
-    if algorithm.is_banded:
-        kernel = "banded"
-    if kernel not in KERNELS:
-        raise ValueError(f"unknown kernel {kernel!r}")
     b = ref_tokens.shape[0]
     n = mesh.size
     if n > 1 and b % (8 * n):
         raise ValueError(f"batch {b} not divisible by 8*{n} devices")
     host = tuple(np.asarray(a) for a in (ref_tokens, qry_tokens, ref_len,
                                          qry_len))
+    picks = shard_kernels(mesh, algorithm, with_traceback, kernel,
+                          host[1].shape[1], host[2], host[3])
     outs = []
-    for dev, rows in zip(mesh.devices, shard_rows(b, n)):
+    for dev, rows, pick in zip(mesh.devices, shard_rows(b, n), picks):
         with on_device(dev):
             with timer.phase("dispatch.upload"):
                 tensors = arrays_to_tensors(*(a[rows] for a in host), dev)
             with timer.phase("dispatch.enqueue"):
-                if kernel == "banded":
+                if pick == "banded":
                     out = fill_banded_bucket_async(
                         algorithm, params, *tensors,
                         with_traceback=with_traceback)
-                elif kernel == "stagger":
+                elif pick == "stagger":
                     out = fill_stagger_bucket_async(
                         algorithm, params, *tensors,
                         with_traceback=with_traceback, stripe_s=stripe_s)
@@ -192,7 +248,7 @@ def fill_sharded(
                         algorithm, params, *tensors,
                         with_traceback=with_traceback)
         if dev.type == "cuda":
-            profiler.count_fill(kernel, host[2][rows], host[3][rows],
+            profiler.count_fill(pick, host[2][rows], host[3][rows],
                                 params.band)
         outs.append(out)
     scores, srow, scol, dirs = (tuple(o[k] for o in outs) for k in range(4))

@@ -2,8 +2,9 @@
 traceback (host or device) -> format.
 
 Port of tpu_align/runtime/engine.py for its four aligners: LNW, LSW and
-ANW on the stagger fill (or the row-sweep fill, kernel="rowscan"), BSW
-on the banded fill; host, device or Hirschberg traceback; records or
+ANW on the stagger fill (or the row-sweep fill: kernel="rowscan", and
+where kernel="auto" picks it for a scores-only bucket), BSW on the banded
+fill; host, device or Hirschberg traceback; records or
 blocks output.  The pipeline keeps the reference's end-state V19 flow (SURVEY.md section 3.3):
 a sliding window of at most max_inflight buckets is enqueued on the current
 CUDA stream, each followed by async D2H copies into pinned host buffers
@@ -175,7 +176,7 @@ class _BlockCollector:
 
 class AlignmentEngine:
     """Aligns PairDatasets with the port's kernels: the stagger fill (LNW,
-    LSW, ANW; kernel "auto" or "stagger"), the row-sweep fill
+    LSW, ANW; kernel="stagger"), the row-sweep fill's band wavefront
     (kernel="rowscan", host traceback over its word-major dirs) or the
     banded fill (BSW, whatever `kernel` says, as in the JAX engine), then
     the native host walk or the device walk -- or, with
@@ -210,6 +211,13 @@ class AlignmentEngine:
 
     with_traceback=False gives the scores-only fast path (no direction
     words, no alignment strings -- the V6 mode, V6.cu:28-35).
+
+    kernel="auto" (the default) picks a fill a bucket -- a shard's rows on
+    a mesh -- in distributed/sharding.py `pick_fill`: the band wavefront
+    for a scores-only bucket of long pairs (at least 8 bands of 128 query
+    rows; fewer than 16 pairs a SM), the stagger fill for every other
+    bucket and every fill with direction words, so every traceback mode
+    sees the stagger layout.
 
     max_inflight bounds the buckets (fills, and with device traceback
     walks) enqueued ahead of the consumer
@@ -247,10 +255,10 @@ class AlignmentEngine:
         self.local_mode = local_mode
         if kernel not in ("auto", "stagger", "rowscan"):
             raise ValueError(f"unknown kernel {kernel!r}")
-        self.kernel = "stagger" if kernel == "auto" else kernel
+        self.kernel = kernel
         if traceback not in ("host", "device", "hirschberg"):
             raise ValueError(f"unknown traceback mode {traceback!r}")
-        if (traceback == "device" and self.kernel != "stagger"
+        if (traceback == "device" and kernel == "rowscan"
                 and not algorithm.is_banded):
             raise ValueError(
                 "traceback='device' requires the stagger kernel "
@@ -381,8 +389,9 @@ class AlignmentEngine:
                 np.ascontiguousarray(b.ref_len, np.int32))
 
     def warmup(self, ds: PairDataset) -> None:
-        """Take one bucket of each distinct bucket shape this dataset's run
-        will take through its fill -- and, under device traceback, its
+        """Take one bucket of each distinct bucket shape (and fill kernel,
+        which kernel="auto" picks a bucket) this dataset's run will take
+        through its fill -- and, under device traceback, its
         walk and compaction, finalized -- then wait for the engine's
         devices (every shard's on a mesh).  On the card this moves the
         kernels' first-use build and the allocators' first allocations out
@@ -394,7 +403,11 @@ class AlignmentEngine:
         seen: set[tuple] = set()
         timer = PhaseTimer()
         for b in self._buckets_of(ds, timer):
-            shape = (b.ref_tokens.shape, b.qry_tokens.shape)
+            shape = (b.ref_tokens.shape, b.qry_tokens.shape,
+                     *sharding.shard_kernels(
+                         self.mesh, self.algorithm, self.with_traceback,
+                         self.kernel, b.qry_tokens.shape[1], b.ref_len,
+                         b.qry_len))
             if shape in seen:
                 continue
             seen.add(shape)
