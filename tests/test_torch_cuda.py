@@ -21,10 +21,12 @@ through `-all-paths -device cuda`, and the engine on a 2-shard mesh of the
 card (after warmup) against the one-device run, launch counts included;
 the mesh of every visible card, global_stats, and -mesh beyond them; the
 fill counters against the buckets of an engine run and against
-Hirschberg's fill launches.
+Hirschberg's fill launches; ANW scores of 16 kbp pairs on the band
+wavefront against the benchmark's plain reference, with B2's counters.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
-The module imports only the port.  The card's machine has no JAX, and
+The module imports only the port (and, inside one test, the benchmark's
+plain PyTorch reference).  The card's machine has no JAX, and
 tests/conftest.py imports it, so run these there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -990,6 +992,52 @@ def test_auto_puts_few_long_pairs_on_the_band_wavefront(cuda_device):
     _, counts, buckets = run(reads, "auto")
     assert counts["stagger_fill"] == buckets == 1
     assert counts["rowscan_fill"] == 0
+
+
+def test_anw_long_pairs_on_the_band_wavefront(cuda_device):
+    """The card twin of tests/test_torch_anw_long.py: ANW, scores only,
+    kernel="auto", 8 HiFi-like pairs of 16,384 bp go to the band
+    wavefront alone, and each score is the benchmark's plain reference's
+    (benchmarks/reference.py, on the card).  The B2 counters count each
+    launch with its persistent warps."""
+    import sys
+
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from benchmarks import reference
+
+    params = AlignmentParams(match=3, mismatch=-1, gap_open=-4,
+                             gap_extend=-1)
+    ds = synthetic_dataset(8, uniform_len=16_384, seed=19, sub_rate=0.004,
+                           indel_rate=0.003)
+    engine = AlignmentEngine(Algorithm.ANW, params, device="cuda",
+                             with_traceback=False, output="blocks")
+    buckets = engine._buckets_of(ds)
+    engine.warmup(ds)
+    reset_launch_counts()
+    scores = engine.run(ds).scores()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["rowscan_fill"] == len(buckets) > 0
+    assert counts["stagger_fill"] == 0
+    assert counts["fill_band_counted"] == counts["rowscan_fill"]
+    # at most a warp a (128-row band, row) item, in whole blocks of 4
+    items = max(-(-b.qry_tokens.shape[1] // 128) * b.qry_tokens.shape[0]
+                for b in buckets)
+    warps = counts["fill_band_warps_max"]
+    assert 0 < warps <= 4 * -(-items // 4)
+    cells = sum(int(b.ref_len[:b.num_real].astype(np.int64)
+                    @ b.qry_len[:b.num_real]) for b in buckets)
+    assert counts["fill_band_warp_cells"] >= cells / warps * (1 - 1e-12)
+    if len(buckets) == 1:
+        assert counts["fill_band_warp_cells"] == pytest.approx(cells / warps)
+    pairs = [(ds.reference_bytes(i).tobytes(), ds.query_bytes(i).tobytes())
+             for i in range(len(ds))]
+    scoring = dict(match=3, mismatch=-1, gap=-2, gap_open=-4, gap_extend=-1,
+                   band=16)
+    want = reference.scores("anw", scoring, pairs, "cuda")
+    np.testing.assert_array_equal(scores, want)
 
 
 @pytest.mark.parametrize("name", dpx.OPS)

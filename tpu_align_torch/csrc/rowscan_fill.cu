@@ -584,8 +584,10 @@ __global__ void __launch_bounds__(kWarps * 32) band_fill_kernel(Args a) {
   }
 }
 
+// warps (may be null) receives the persistent warps the launch runs, grid x
+// kWarps, from the occupancy the instantiation's registers allow.
 template <int kAlgo, int kMode>
-cudaError_t launch(const Args& a, cudaStream_t st) {
+cudaError_t launch(const Args& a, cudaStream_t st, int* warps) {
   auto kernel = band_fill_kernel<kAlgo, kMode>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -605,9 +607,10 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   // persistent warps: as many as fit, or one an item
   const long long items = static_cast<long long>(a.bands) * a.B;
   const long long want = (items + kWarps - 1) / kWarps;
-  const int grid = static_cast<int>(
-      std::min<long long>(want, static_cast<long long>(per_sm) * sms));
-  kernel<<<std::max(grid, 1), kWarps * 32, 0, st>>>(a);
+  const int grid = std::max(1, static_cast<int>(std::min<long long>(
+                                   want, static_cast<long long>(per_sm) * sms)));
+  kernel<<<grid, kWarps * 32, 0, st>>>(a);
+  if (warps != nullptr) *warps = grid * kWarps;
   return cudaGetLastError();
 }
 
@@ -630,12 +633,15 @@ extern "C" long long ta_torch_rowscan_scratch_words(int algo, int mode, int B,
 // dirs (MW, B, N), 2 = last rows hlast (and ANW's flast) (N, B) and the
 // score, LNW and ANW only.  open_top (B,) may be null (ANW: gap_open).
 // scratch holds ta_torch_rowscan_scratch_words(algo, mode, B, N, M) words.
+// warps, a host int (may be null), receives the persistent warps launched
+// (0 where nothing is launched); reading it needs no device sync.
 extern "C" int ta_torch_rowscan_fill(
     int algo, int mode, const void* ref, const void* qry, const void* ref_len,
     const void* qry_len, const void* open_top, int B, int N, int M,
     int match, int mismatch, int gap, int gap_open, int gap_extend, int band,
     void* scratch, void* score, void* srow, void* scol, void* dirs,
-    void* hlast, void* flast, void* stream) {
+    void* hlast, void* flast, void* stream, int* warps) {
+  if (warps != nullptr) *warps = 0;
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const bool local = algo == kLSW || algo == kBSW;
   if (algo < kLNW || algo > kBSW || mode < kModeScores ||
@@ -665,16 +671,16 @@ extern "C" int ta_torch_rowscan_fill(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (algo * 3 + mode) {
-    case kLNW * 3 + kModeScores: e = launch<kLNW, kModeScores>(a, st); break;
-    case kLNW * 3 + kModeDirs: e = launch<kLNW, kModeDirs>(a, st); break;
-    case kLNW * 3 + kModeLastRows: e = launch<kLNW, kModeLastRows>(a, st); break;
-    case kLSW * 3 + kModeScores: e = launch<kLSW, kModeScores>(a, st); break;
-    case kLSW * 3 + kModeDirs: e = launch<kLSW, kModeDirs>(a, st); break;
-    case kANW * 3 + kModeScores: e = launch<kANW, kModeScores>(a, st); break;
-    case kANW * 3 + kModeDirs: e = launch<kANW, kModeDirs>(a, st); break;
-    case kANW * 3 + kModeLastRows: e = launch<kANW, kModeLastRows>(a, st); break;
-    case kBSW * 3 + kModeScores: e = launch<kBSW, kModeScores>(a, st); break;
-    default: e = launch<kBSW, kModeDirs>(a, st); break;
+    case kLNW * 3 + kModeScores: e = launch<kLNW, kModeScores>(a, st, warps); break;
+    case kLNW * 3 + kModeDirs: e = launch<kLNW, kModeDirs>(a, st, warps); break;
+    case kLNW * 3 + kModeLastRows: e = launch<kLNW, kModeLastRows>(a, st, warps); break;
+    case kLSW * 3 + kModeScores: e = launch<kLSW, kModeScores>(a, st, warps); break;
+    case kLSW * 3 + kModeDirs: e = launch<kLSW, kModeDirs>(a, st, warps); break;
+    case kANW * 3 + kModeScores: e = launch<kANW, kModeScores>(a, st, warps); break;
+    case kANW * 3 + kModeDirs: e = launch<kANW, kModeDirs>(a, st, warps); break;
+    case kANW * 3 + kModeLastRows: e = launch<kANW, kModeLastRows>(a, st, warps); break;
+    case kBSW * 3 + kModeScores: e = launch<kBSW, kModeScores>(a, st, warps); break;
+    default: e = launch<kBSW, kModeDirs>(a, st, warps); break;
   }
   return static_cast<int>(e);
 }

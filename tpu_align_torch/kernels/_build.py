@@ -133,6 +133,7 @@ def _configure(lib: ctypes.CDLL) -> None:
             ptr, ptr, ptr,               # score, srow, scol
             ptr, ptr, ptr,               # dirs, hlast, flast
             ptr,                         # stream
+            ctypes.POINTER(i32),         # warps: the launch's persistent warps
         ],
         "ta_torch_split_reduce": [
             ptr, ptr,                    # hlast, flast

@@ -24,11 +24,17 @@ entries); lanes with qlen or rlen 0 give H[qlen][rlen] of the DP.
 The wrappers dispatch on the device of their tensors: CPU tensors run
 `fill_rowscan_reference` (`last_rows_reference`); CUDA tensors launch the
 hand-written kernel (csrc/rowscan_fill.cu) or raise -- nothing falls back.
-`launches` and `last_rows_launches` count kernel launches.  Unlike the
-JAX wrapper, B is not padded to 128 lanes, so callers compare real rows.
+`launches` and `last_rows_launches` count kernel launches, and
+`band_warps` holds the persistent warps of the last launch (the kernel's
+grid x warps a block, which the entry point sizes from the occupancy the
+instantiation's registers allow, and hands back through a host int).
+Unlike the JAX wrapper, B is not padded to 128 lanes, so callers compare
+real rows.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -51,6 +57,7 @@ _MODE_SCORES, _MODE_DIRS, _MODE_LAST_ROWS = 0, 1, 2
 
 launches = 0  # fill kernel launches (dirs or scores-only)
 last_rows_launches = 0  # last-row kernel launches
+band_warps = 0  # persistent warps of the last launch, either mode
 
 
 def rows_per_word(algo: Algorithm) -> int:
@@ -306,6 +313,7 @@ def last_rows_reference(
 
 def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
                    qry_len, open_top=None):
+    global band_warps
     lib = _build.library()
     dev = ref_tokens.device
     b, n = ref_tokens.shape
@@ -332,6 +340,7 @@ def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
         words = lib.ta_torch_rowscan_scratch_words(
             _ALGO_CODE[algorithm], mode, b, n, m)
         scratch = torch.empty(words, dtype=i32, device=dev)
+        warps = ctypes.c_int(0)
         rc = lib.ta_torch_rowscan_fill(
             _ALGO_CODE[algorithm], mode,
             ref_tokens.data_ptr(), qry_tokens.data_ptr(),
@@ -347,10 +356,12 @@ def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
             hlast.data_ptr() if hlast is not None else None,
             flast.data_ptr() if flast is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.byref(warps),
         )
     if rc != 0:
         raise RuntimeError(
             f"rowscan fill kernel launch failed: CUDA error {rc}")
+    band_warps = warps.value
     return scores, srow, scol, dirs, hlast, flast
 
 

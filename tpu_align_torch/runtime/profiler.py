@@ -13,8 +13,9 @@ own ("memmgmt.gather" inside "memmgmt"), and every span of the program
 goes through PhaseTimer.phase.  A recording timer (record=True; the CLI's
 -trace FILE, written by chrome_trace) also keeps each span.  It adds the
 launch counts of the engine-path kernels (reset_launch_counts,
-launch_counts), which show that a run went through the kernels, and what
-each fill launch held (count_fill).
+launch_counts), which show that a run went through the kernels, what
+each fill launch held (count_fill), and what each launch of the band
+wavefront ran on (count_band: its persistent warps).
 """
 
 from __future__ import annotations
@@ -156,6 +157,11 @@ BAND_ROWS = 128
 FILL_KEYS = ("fill_counted", "fill_pairs", "fill_warps", "fill_cells",
              "fill_chain_cells")
 _fill = dict.fromkeys(FILL_KEYS, 0)
+# what the band wavefront's launches (B2, every mode) ran on; count_band
+# adds to it
+BAND_KEYS = ("fill_band_counted", "fill_band_warps_max",
+             "fill_band_warp_cells")
+_band = dict.fromkeys(BAND_KEYS, 0)
 
 
 def band_cells(rlen, qlen, band: int) -> np.ndarray:
@@ -206,9 +212,30 @@ def fill_work(kernel: str, rlen, qlen, band: int | None = None) -> dict:
 def count_fill(kernel: str, rlen, qlen, band: int | None = None) -> None:
     """Add one fill launch to the counters (fill_work): called where the
     launch is made, from the lengths the host holds, never from a device
-    tensor."""
+    tensor.  A "rowscan" launch, the band wavefront's, is also counted by
+    count_band, with the persistent warps its wrapper read back from that
+    launch (kernels/fill.py band_warps)."""
     for key, value in fill_work(kernel, rlen, qlen, band).items():
         _fill[key] += value
+    if kernel == "rowscan":
+        from tpu_align_torch.kernels import fill
+
+        count_band(fill.band_warps, rlen, qlen)
+
+
+def count_band(warps: int, rlen, qlen) -> None:
+    """Add one launch of the band wavefront (B2) to the BAND_KEYS
+    counters: the launch (1); the most persistent warps any launch ran
+    (warps: the launch's grid x warps a block, which the card's occupancy
+    for the instantiation's registers caps); and its real cells, rlen x
+    qlen, over its warps, the cells each persistent warp took on average.
+    A launch of no warps adds no cells."""
+    cells = int(np.sum(np.asarray(rlen, np.int64)
+                       * np.asarray(qlen, np.int64)))
+    _band["fill_band_counted"] += 1
+    _band["fill_band_warps_max"] = max(_band["fill_band_warps_max"], warps)
+    if warps > 0:
+        _band["fill_band_warp_cells"] += cells / warps
 
 
 def _counter_modules():
@@ -229,13 +256,15 @@ def reset_launch_counts() -> None:
     fill.last_rows_launches = stagger.last_rows_launches = 0
     hirschberg.launches = device.stream_finalized = 0
     _fill.update(dict.fromkeys(FILL_KEYS, 0))
+    _band.update(dict.fromkeys(BAND_KEYS, 0))
 
 
 def launch_counts() -> dict:
     """The engine-path kernels' launch counts since the last reset, the
-    buckets whose device walk was finalized in the stream form, and the
-    fill counters (FILL_KEYS: the fill launches AlignmentEngine and
-    Hirschberg made, as count_fill counts them)."""
+    buckets whose device walk was finalized in the stream form, the fill
+    counters (FILL_KEYS: the fill launches AlignmentEngine and Hirschberg
+    made, as count_fill counts them) and the band wavefront's (BAND_KEYS,
+    as count_band counts them)."""
     banded, fill, stagger, device, hirschberg, walk_kernel = \
         _counter_modules()
     return {"stagger_fill": stagger.launches, "banded_fill": banded.launches,
@@ -246,4 +275,4 @@ def launch_counts() -> dict:
             "stagger_last_rows": stagger.last_rows_launches,
             "split_reduce": hirschberg.launches,
             "stream": device.stream_finalized,
-            **_fill}
+            **_fill, **_band}
