@@ -121,6 +121,11 @@ script exits 1 before the first phase):
                  moves and the ns a move; the banded walk also at band
                  20); the row-sweep fill of each aligner there, dirs on,
                  and LNW's and LSW's scores-only, also by torch.profiler;
+                 LNW's and ANW's scores-only fills on WIDE_SCORES problems
+                 (4,000-4,096 x 3,996-4,000 bp, partial bottom bands), a
+                 shape whose launch takes 256-row bands on its own: the
+                 band size asserted, scores equal to the plain version's,
+                 device time by torch.profiler and the bound;
                  LSW's scores-only fill at the end points' shape of phase
                  8 (64 x 16,384 x 16,384); both last-row fills at the
                  split-level shape, and the row sweep's (the band
@@ -199,6 +204,10 @@ WIDE_WALK_BANDS = (64, 129)
 # the banded fill past one warp's shared memory (K8 = 29,064): the lanes'
 # slots in a global scratch; on two long pairs with runs of band - 1 indels
 WIDE_BAND = 14529
+# pairs and query length of the scores-only fills that a launch of their
+# own puts in 256-row bands (kernels/fill.py band_rows): the crossover
+# grid's LNW 4,000 bp x 1,024 pairs, 16 wide bands a pair
+WIDE_SCORES = (1024, 4000)
 HIRSCH_CHECK = (8, 1000, 2000)  # pairs, shortest and longest reference
 SPLIT_LEVEL = (16384, 4096)  # query x reference of the split-shape pair
 # qlen of the last-row problems at the band wavefront's row seams (bands of
@@ -1707,6 +1716,51 @@ def _per_event(t: dict, fn, events: int, label: str) -> None:
          f"(profiler); {events} events, {t['ns_per_event']:.3f} ns an event")
 
 
+def _wide_scores(params) -> dict:
+    """LNW's and ANW's scores-only fills on WIDE_SCORES problems: queries
+    of L, L + 48 and L + 96 rows (a partial bottom band, and whole bands
+    at L + 96 = 4,096) against references 0-4 bases short of L, which
+    band_rows puts in 256-row bands on the launch's shape alone.  The
+    band size is asserted, the scores equal the plain version's bit for
+    bit; then each fill's device time (torch.profiler) and its bound.
+    Returns {aligner: kernels-line fields}."""
+    import torch
+
+    from tpu_align_torch import Algorithm
+    from tpu_align_torch.kernels import fill as rs
+
+    pairs, length = WIDE_SCORES
+    lens = [(length + 48 * (k % 3), length - k % 5) for k in range(pairs)]
+    t = _problems(lens, seed=11)
+    cells = sum(q * r for q, r in lens)
+    rec = {}
+    for algo in (Algorithm.LNW, Algorithm.ANW):
+        def fn():
+            return rs.fill_bucket_async(algo, params, *t,
+                                        with_traceback=False)
+
+        label = (f"{algo.value} row-sweep fill, {pairs} x ~{length} bp, "
+                 "scores only")
+        got = fn()
+        if rs.launch_band_rows != rs.WIDE_BAND_ROWS:
+            raise AssertionError(f"{label}: {rs.launch_band_rows}-row "
+                                 "bands, not 256")
+        want = rs.fill_rowscan_reference(algo, params, *t,
+                                         with_traceback=False)
+        torch.cuda.synchronize()
+        _compare(got, want, pairs, label, None)
+        bound = _fill_bound(algo, t, got, cells, dirs=False)
+        dev = device_ms(fn, reps=5)
+        _say("timing", f"{label}: 256-row bands, scores exact; device "
+             f"{dev:.4f} ms a call (profiler), {cells / dev / 1e6:.1f} "
+             f"GCUPS; bound {bound[0]:.6f} ms ({bound[1]}), "
+             f"{bound[0] / dev:.4f} of it")
+        rec[algo.value] = {"band_rows": rs.launch_band_rows,
+                           "device_ms": dev, "bound_ms": bound[0],
+                           "bound_by": bound[1]}
+    return rec
+
+
 def phase_timing(main_buckets, split_inputs, split_levels):
     """Each kernel beside its plain version on one bucket (the last-row
     fills at the split-level shape, the split reduction at the 64-pair top
@@ -1883,6 +1937,7 @@ def phase_timing(main_buckets, split_inputs, split_levels):
         _say("timing", f"{label}: device {dev:.4f} ms a call (profiler), "
              f"{n_cells / dev / 1e6:.1f} GCUPS; bound {bound[0]:.6f} ms "
              f"({bound[1]}), {bound[0] / dev:.4f} of it")
+    out["rowscan_scores_wide"] = _wide_scores(params)
     # LSW Hirschberg's end points: a scores-only fill of its 64 pairs
     # (phase 8's inputs), 128 bands a pair
     name, npairs, q, r = LONG_RUNS[3]
@@ -2367,7 +2422,8 @@ def main(argv=None) -> int:
         record("rowscan_fill", csrc + "rowscan_fill.cu",
                "tpu_align/kernels/fill.py:237",
                runs["lnw-host-rowscan"]["rowscan_fill"],
-               rowscan_err["rowscan_fill"], times["rowscan_fill"]),
+               rowscan_err["rowscan_fill"], times["rowscan_fill"],
+               {"scores_256_rows": times["rowscan_scores_wide"]}),
         record("lsw_rowscan_endpoints", csrc + "rowscan_fill.cu",
                "tpu_align/kernels/fill.py:237",
                hirsch[long_lsw]["rowscan_fill"],

@@ -43,6 +43,7 @@ from tpu_align_torch.cli import main as cli_main
 from tpu_align_torch.convert import bucket_to_tensors
 from tpu_align_torch.io import BucketSpec, PairDataset, bucketize
 from tpu_align_torch.io.dataset import parse_pair_file
+from tpu_align_torch.kernels import _build as build
 from tpu_align_torch.kernels import banded as tb
 from tpu_align_torch.kernels import fill as rs
 from tpu_align_torch.kernels import stagger as ts
@@ -59,6 +60,7 @@ from tpu_align_torch.utils.synthetic import (
     long_run_bucket,
     main_path_bucket,
     rowscan_seam_bucket,
+    scores_step_bucket,
     seam_bucket,
     split_reduce_inputs,
     synthetic_dataset,
@@ -644,6 +646,74 @@ def test_rowscan_kernel_on_band_seams(cuda_device, algo, with_traceback):
             if q > 0 and r > 0 and used < 32:
                 words = got[3][(q - 1) // rpw, k, :r].long() & 0xFFFFFFFF
                 assert not torch.any(words >> used), (k, q, r)
+
+
+# every rows-a-lane the scores instantiations are built with: 4, and 8
+# for LNW and ANW
+WIDE_BUILT = (Algorithm.LNW, Algorithm.ANW)
+SCORES_STEP_ROWS = [(a, r) for a in ALGOS4
+                    for r in ((4, 8) if a in WIDE_BUILT else (4,))]
+
+
+@pytest.mark.parametrize("algo,lane_rows", SCORES_STEP_ROWS,
+                         ids=[f"{a.value}-{r}" for a, r in SCORES_STEP_ROWS])
+@pytest.mark.parametrize("alt", [False, True], ids=["3-1-2", "alt"])
+def test_rowscan_scores_step_on_its_seams(cuda_device, monkeypatch, algo,
+                                          lane_rows, alt):
+    """The scores step (fill_band_scores) and the general step beside it
+    at each rows-a-lane built, one launch of the ragged scores_step_bucket
+    (qlen 0, 1, 31-33, 127-129, 255-257, 384, 511-513 x rlen 0, 1, 31-33,
+    63-65, 96, 97, 160: ramps alone, steady chunks, full bands, a partial
+    bottom band at 128 and 256 rows; N, lowercase and pad codes in both
+    sequences; LSW and BSW ties in row-major order at 128- and 256-row
+    seams) against the plain version: scores, rows and columns bit for
+    bit.  alt: other weights (match 5, mismatch -4, gaps -3, -5, -2), and
+    a match past a byte, where every band takes the general step."""
+    # the launch's shape picks 8 rows a lane where they are built: force
+    # each either way
+    monkeypatch.setattr(rs, "WIDE_BANDS_A_WARP",
+                        0 if 32 * lane_rows == rs.WIDE_BAND_ROWS else 10**9)
+    b, t = scores_step_bucket(cuda_device)
+    weights = [AlignmentParams(match=5, mismatch=-4, gap=-3, gap_open=-5,
+                               gap_extend=-2, band=7),
+               AlignmentParams(match=200, mismatch=-1, band=7)] if alt \
+        else [AlignmentParams(band=5)]
+    for params in weights:
+        before = rs.launches
+        got = rs.fill_bucket_async(algo, params, *t, with_traceback=False)
+        assert rs.launches == before + 1
+        assert rs.launch_band_rows == 32 * lane_rows
+        assert rs.launch_scores_step == (params.match < 128)
+        want = rs.fill_rowscan_reference(algo, params, *t,
+                                         with_traceback=False)
+        torch.cuda.synchronize()
+        _assert_same_rowscan(algo, got, want, t[2], t[3], b.num_real)
+
+
+def test_rowscan_wide_bands_only_where_built(cuda_device, monkeypatch):
+    """The entry point tells which band sizes it is built for: 128 rows in
+    every mode, 256 only for LNW's and ANW's scores mode (-1 elsewhere),
+    so band_rows keeps 128 for LSW and BSW even where a launch's shape
+    asks for wide bands, and their launch runs as before."""
+    for algo in ALGOS4:
+        code = rs._ALGO_CODE[algo]
+        for mode in (0, 1):
+            assert build.library().ta_torch_rowscan_resident_warps(
+                code, mode, 128) > 0
+            wide = build.library().ta_torch_rowscan_resident_warps(
+                code, mode, 256)
+            assert (wide > 0) == (mode == 0 and algo in WIDE_BUILT), \
+                (algo, mode, wide)
+    monkeypatch.setattr(rs, "WIDE_BANDS_A_WARP", 0)
+    b, t = scores_step_bucket(cuda_device)
+    params = AlignmentParams(band=5)
+    for algo in ALGOS4:
+        got = rs.fill_bucket_async(algo, params, *t, with_traceback=False)
+        assert rs.launch_band_rows == (256 if algo in WIDE_BUILT else 128)
+        want = rs.fill_rowscan_reference(algo, params, *t,
+                                         with_traceback=False)
+        torch.cuda.synchronize()
+        _assert_same_rowscan(algo, got, want, t[2], t[3], b.num_real)
 
 
 @pytest.mark.parametrize("algo,with_traceback", [(Algorithm.LSW, False),

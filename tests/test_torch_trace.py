@@ -207,15 +207,132 @@ def test_fill_work_of_a_hand_made_bucket():
             "fill_chain_cells": 250 * 240}
     assert profiler.fill_work("stagger", rlen, qlen) == {
         **want, "fill_warps": 2}
-    # the band wavefront: ceil(240 / 128) + ceil(300 / 128) bands
-    assert profiler.fill_work("rowscan", rlen, qlen) == {
+    # the band wavefront: ceil(240 / 128) + ceil(300 / 128) bands, or
+    # ceil(240 / 256) + ceil(300 / 256) of 256 rows
+    assert profiler.fill_work("rowscan", rlen, qlen, band_rows=128) == {
         **want, "fill_warps": 2 + 3}
+    assert profiler.fill_work("rowscan", rlen, qlen, band_rows=256) == {
+        **want, "fill_warps": 1 + 2}
+    with pytest.raises(ValueError, match="band_rows"):
+        profiler.fill_work("rowscan", rlen, qlen)
     # band 2 on 3 x 3: rows 1..3 keep columns 1-2, 1-3, 2-3
     assert profiler.fill_work("banded", [3, 0], [3, 0], band=2) == {
         "fill_counted": 1, "fill_pairs": 1, "fill_warps": 1,
         "fill_cells": 7, "fill_chain_cells": 7}
     with pytest.raises(ValueError, match="unknown fill kernel"):
         profiler.fill_work("walk", rlen, qlen)
+
+
+def _steady_by_the_kernels_loop(rlen, qlen, band_rows):
+    """The steady cells of one pair as csrc/rowscan_fill.cu's scores step
+    sweeps it: each full band's chunks of 32 steps, the first a ramp, then
+    steady chunks while every lane's column stays within rlen."""
+    cells = 0
+    for i0 in range(0, max(qlen, 0), band_rows):
+        if i0 + band_rows > qlen:  # the partial bottom band: general step
+            break
+        t0 = 32  # chunk 0 is the ramp-in
+        while t0 + 32 <= rlen:
+            cells += 32 * band_rows
+            t0 += 32
+    return cells
+
+
+@pytest.mark.parametrize("band_rows", [128, 256])
+@pytest.mark.parametrize("rlen,qlen", [
+    (0, 0), (5, 0), (0, 512),            # no cell
+    (31, 128), (63, 256), (63, 1024),    # the ramps alone
+    (64, 127), (64, 255),                # one partial bottom band
+    (64, 128), (64, 256), (65, 300),     # one steady chunk a full band
+    (16384, 16384), (16384, 16421),      # the benchmark's pairs
+    (16415, 16347), (1000, 513),
+])
+def test_fill_band_steady_cells_from_lengths(rlen, qlen, band_rows):
+    """steady_cells of one pair against the kernel's chunk loop counted
+    by hand, and through count_fill of a scores launch (what the wrapper
+    leaves in kernels/fill.py) to launch_counts."""
+    from tpu_align_torch.kernels import fill
+
+    want = _steady_by_the_kernels_loop(rlen, qlen, band_rows)
+    assert profiler.steady_cells([rlen], [qlen], band_rows) == want
+    assert want <= rlen * qlen
+    profiler.reset_launch_counts()
+    old = (fill.launch_band_rows, fill.launch_scores_step, fill.band_warps)
+    try:
+        fill.launch_band_rows, fill.launch_scores_step = band_rows, True
+        fill.band_warps = 4
+        profiler.count_fill("rowscan", [rlen, 0], [qlen, 0])
+        counts = profiler.launch_counts()
+        assert counts["fill_band_steady_cells"] == want
+        assert counts["fill_warps"] == (-(-qlen // band_rows)
+                                        if rlen * qlen else 0)
+        # a launch whose bands all take the general step adds none
+        fill.launch_scores_step = False
+        profiler.count_fill("rowscan", [rlen], [qlen])
+        assert profiler.launch_counts()["fill_band_steady_cells"] == want
+    finally:
+        fill.launch_band_rows, fill.launch_scores_step, fill.band_warps = old
+        profiler.reset_launch_counts()
+
+
+def test_fill_band_steady_cells_share_of_a_long_bucket():
+    """On 16 kbp pairs whose queries end anywhere in their last band, the
+    steady chunks of full bands hold over 99 % of the cells at 128-row
+    bands, as the scores cells' pairs do."""
+    rng = np.random.default_rng(5)
+    rlen = rng.integers(16300, 16500, 1024)
+    qlen = rng.integers(16300, 16500, 1024)
+    share = profiler.steady_cells(rlen, qlen, 128) / int(rlen @ qlen)
+    assert 0.99 < share < 1
+
+
+@pytest.mark.parametrize("lane_rows", [4, 8])
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 255, 256, 257, 16415])
+def test_band_size_bookkeeping_agrees(m, lane_rows):
+    """One band size for the launcher and the counters: a bucket of b
+    problems of m rows has as many bands in fill_work, and in count_fill
+    of a launch the wrapper made in that band size, as kernels/fill.py
+    bands_of (the launcher's count) gives, at each rows-a-lane."""
+    from tpu_align_torch.kernels import fill
+
+    rows, b, n = 32 * lane_rows, 6, 300
+    warps = profiler.fill_work("rowscan", [n] * b, [m] * b,
+                               band_rows=rows)["fill_warps"]
+    assert warps == b * fill.bands_of(m, rows) == b * -(-m // rows)
+    profiler.reset_launch_counts()
+    old = fill.launch_band_rows
+    try:
+        fill.launch_band_rows = rows
+        profiler.count_fill("rowscan", [n] * b, [m] * b)
+        assert profiler.launch_counts()["fill_warps"] == warps
+    finally:
+        fill.launch_band_rows = old
+        profiler.reset_launch_counts()
+    assert fill.bands_of(0, rows) == 1  # qlen 0: row 0, one band
+
+
+@pytest.mark.parametrize("algo", list(Algorithm), ids=lambda a: a.value)
+def test_band_rows_by_the_launch_shape(algo):
+    """8 rows a lane (256-row bands) only for the scores instantiations
+    built with them (the entry point's resident warps, -1 for a size not
+    built: LNW and ANW have them), and only where a launch's 256-row
+    bands are at least WIDE_BANDS_A_WARP a resident warp; 4 rows a lane
+    otherwise, and always in the dirs and last-row modes."""
+    from tpu_align_torch.kernels import fill
+
+    wide = algo in (Algorithm.LNW, Algorithm.ANW)
+
+    def resident(rows):
+        assert rows == fill.WIDE_BAND_ROWS
+        return 3168 if wide else -1
+
+    full = fill.WIDE_BANDS_A_WARP * 3168 * 256  # rows of a full launch
+    assert fill.band_rows(False, 1, full, resident) == fill.BAND_ROWS == 128
+    assert fill.band_rows(True, 1, full, resident) == (256 if wide else 128)
+    assert fill.band_rows(True, 64, full // 64, resident) == \
+        (256 if wide else 128)
+    assert fill.band_rows(True, 64, full // 64 - 256, resident) == 128
+    assert fill.band_rows(True, 1, 16384, resident) == 128
 
 
 def test_band_cells_against_counting_them():

@@ -81,6 +81,10 @@
 //     launch's stream; nothing else of the scratch needs clearing.
 //   - Bands past a problem's qlen take their ticket and return; columns
 //     past its rlen are never read.  A problem with qlen = 0 is row 0.
+//   - Rows a lane (kRows; a band is 32 x kRows rows) are a template
+//     argument: 4 in the dirs and last-row modes (a 16-row dirs word, the
+//     ring), and in the scores mode what the host asks for
+//     (kernels/fill.py band_rows) among the instantiations built.
 // What the modes add:
 //   - Dirs.  A 128-row band is 8 word rows of 2-bit codes (16 of ANW's
 //     4-bit codes), so no word is split between bands; lane 4w+k (2w+k)
@@ -109,14 +113,41 @@
 //     visible.
 //   - BSW keeps two values a row: the unmasked H of the row recurrence and
 //     the masked H that flows down and into the best.
-// A band costs rlen + 31 steps of 4 rows a lane; band k+1 trails band k by
-// at least 70 steps (30 for the lanes' skew, 40 for the chunk it loads
-// ahead) and the hand-off's latency.  A step's instructions (shuffles,
-// selects, the chunk's bookkeeping) bound it, not the rows' arithmetic:
-// on the card a step of one warp costs about the same at 1, 2, 4 or 8 rows
-// a lane.  So the 32 steps of a chunk are unrolled (the shuffles' lanes
-// and the chunk's checks are constants), and 128-row bands (4 rows a lane)
-// timed best against 32, 64 and 256 (PERF.md).
+//   - Scores only, a step of its own (fill_band_scores) for every band
+//     whose rows are all live (all but a partial bottom band) and hold only
+//     A, C, G and T, where match and mismatch fit a byte; every other band
+//     takes the general step (fill_band).  A band's sweep is peeled into a
+//     ramp-in chunk (some lane still at j < 1), steady chunks (every lane's
+//     column in [1, rlen]) and the ramp-out (some lane past rlen): only the
+//     ramps test the border and rlen.  Rows are never dead, so the writer
+//     is the last lane and its store and publication are constants of the
+//     chunk.  Each lane packs, once a band, a substitution profile of its
+//     rows: a word a row, byte c the score of base code c (A, C, T, G as
+//     (code >> 1) & 3) against the row's base; a reference code becomes,
+//     once a chunk, a prmt selector of its byte, sign-extended, or of the
+//     mismatch word for any code other than A, C, G and T, so a row's
+//     score is one prmt, equal to the compare of codes it replaces.  The
+//     selectors of the chunk and of the one before, and the incoming row
+//     (H, F), go through a per-warp shared-memory stage, two chunks deep,
+//     written one chunk ahead: a lane reads its column's selector and lane
+//     0 its incoming H where the general step shuffles and selects.
+// A band costs rlen + 31 steps; band k+1 trails band k by at least 70
+// steps (30 for the lanes' skew, 40 for the chunk it loads ahead) and the
+// hand-off's latency.  What bounds a step depends on the launch.  A lone
+// warp (a few problems on an empty card) waits on its step's chain: the
+// shuffle and one dependent operation a row, so a step of more rows is a
+// longer wait (on the H100, one 16 kbp LNW pair: 3.4 ms at 4 rows a lane,
+// 3.9 at 8).  A full card is bound by the instructions its SMs issue for
+// all their warps: there the general step's bookkeeping (shuffles, lane-0
+// and border selects, row_live selects, the compare and select of a
+// substitution, the writer's and the publication's tests) cost about 27
+// SM-cycles a warp-step for LNW's 12 operations, and the scores step,
+// which issues little besides the cell's arithmetic, took 549 LNW pairs
+// of 16 kbp from 118 ms to 47 at 4 rows a lane and 40 at 8 (ANW: 188 ->
+// 77 / 65), the wider band sharing its step's few instructions among
+// more rows (PERF.md section 6).  So the host asks for 8 rows a lane only
+// on a launch that fills the card many times over (kernels/fill.py
+// band_rows).
 //
 // The entry point launches on the caller's stream, never synchronises, and
 // returns cudaGetLastError() so a refused launch reaches the wrapper.
@@ -148,15 +179,24 @@ constexpr int kModeScores = 0;
 constexpr int kModeDirs = 1;
 constexpr int kModeLastRows = 2;
 
-constexpr int kRows = 4;             // query rows a lane
-constexpr int kBand = 32 * kRows;    // query rows a band (a warp)
-constexpr int kWarps = 4;            // warps a block
+constexpr int kWarps = 4;   // warps a block
 constexpr int kAhead = 24;  // the step of a chunk that loads the next one
 constexpr int kRing = 64;   // columns of a band's dirs ring
+// a warp's scores stage: selectors [2][64], incoming H [2][32] and F [2][32]
+constexpr int kStageWords = 256;
 // scratch words before the ready words: the ticket, alone in its line
 constexpr int kHead = 32;
 
-int bands_of(int M) { return std::max(1, (M + kBand - 1) / kBand); }
+// The steps of a scores chunk unrolled together (a divisor of 32 and of
+// kAhead), by instantiation, as timed on the H100 (PERF.md section 6): a
+// whole chunk for LNW at 8 rows a lane and for LSW, 8 steps elsewhere.
+__host__ __device__ constexpr int scores_group(int algo, int rows) {
+  return (algo == kLNW && rows == 8) || algo == kLSW ? 32 : 8;
+}
+
+int bands_of(int M, int band_rows) {
+  return std::max(1, (M + band_rows - 1) / band_rows);
+}
 
 __device__ __forceinline__ int ld_acquire(const int32_t* p) {
   int v;
@@ -168,6 +208,13 @@ __device__ __forceinline__ int ld_acquire(const int32_t* p) {
 __device__ __forceinline__ void st_release(int32_t* p, int v) {
   asm volatile("st.release.gpu.global.s32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
+}
+
+// every lane spins until the ready word reaches v
+__device__ __forceinline__ void wait_ready(const int32_t* p, int v) {
+  while (!__all_sync(kFull, ld_acquire(p) >= v)) {
+    __nanosleep(64);
+  }
 }
 
 // row-major first occurrence of the best local score
@@ -191,6 +238,30 @@ __device__ __forceinline__ void warp_best(int& v, int& r, int& c) {
   }
 }
 
+__device__ __forceinline__ bool is_base(int c) {
+  return c == 'A' || c == 'C' || c == 'G' || c == 'T';
+}
+
+// The prmt selector of reference code c against a row's profile word
+// (fill_band_scores): byte (c >> 1) & 3 for A, C, T, G (0, 1, 2, 3), byte
+// 4 (the mismatch word's) for any other code, sign-extended to 32 bits.
+__device__ __forceinline__ uint32_t code_sel(int c) {
+  const uint32_t k = is_base(c) ? (static_cast<uint32_t>(c) >> 1) & 3u : 4u;
+  return k * 0x1111u + 0x8880u;
+}
+
+// bytes 0-3 of a, 4-7 of b, picked and sign-extended by sel
+__device__ __forceinline__ int prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return static_cast<int>(d);
+}
+
+template <bool kValue>
+struct Flag {  // a compile-time argument of a generic lambda
+  static constexpr bool value = kValue;
+};
+
 struct Args {
   const uint8_t* ref;       // (B, N)
   const uint8_t* qry;       // (B, M)
@@ -198,7 +269,8 @@ struct Args {
   const int32_t* qry_len;   // (B,)
   const int32_t* open_top;  // (B,) or null (ANW)
   int B, N, M, match, mismatch, gap, gap_open, gap_extend, band;
-  int bands;                // bands a problem, ceil(M / kBand)
+  int bands;                // bands a problem, ceil(M / band rows)
+  bool packed;              // match and mismatch fit a signed byte
   unsigned* ticket;         // the next (band, problem) item
   int32_t* ready;           // (bands, B): columns of a band's row published
   int32_t* hbuf;            // (B, 2, N): a band's bottom row H, 2 slots
@@ -212,20 +284,89 @@ struct Args {
   int32_t* flast;           // (N, B)
 };
 
-// Band k (rows 128k+1 .. 128k+128) of problem b; see the header.  ring is
-// the warp's dirs ring, (word rows, kRing) words.
-template <int kAlgo, int kMode>
-__device__ void fill_band(const Args& a, int b, int k, int lane,
+// H[i][0] and H[0][j] of problem b
+template <int kAlgo>
+__device__ __forceinline__ int col_border(const Args& a, int tb, int i) {
+  if (kAlgo == kLSW || kAlgo == kBSW) return 0;
+  if (kAlgo == kANW) return i == 0 ? 0 : tb + i * a.gap_extend;
+  return i * a.gap;
+}
+
+template <int kAlgo>
+__device__ __forceinline__ int row_border(const Args& a, int j) {
+  if (kAlgo == kLSW || kAlgo == kBSW) return 0;
+  if (kAlgo == kANW) return j == 0 ? 0 : a.gap_open + j * a.gap_extend;
+  return j * a.gap;
+}
+
+// A local band's end: the lane's best over its rows (those <= qlen), the
+// warp's; a band above the bottom one writes it and makes its last
+// release (rlen + 1), the bottom band reduces the bands above and writes
+// the outputs.  See the header.
+template <int kRows>
+__device__ __forceinline__ void finish_local(const Args& a, int b, int k, int lane,
+                             int writer, bool top, bool bottom, int rl,
+                             int ql, int i1, const int (&bestv)[kRows],
+                             const int (&bestj)[kRows],
+                             const int32_t* in_ready, int32_t* out_ready) {
+  int v = 0, bi = 0, bj = 0;  // the lane's best, its rows in order
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    if (i1 + q <= ql && bestv[q] > v) {
+      v = bestv[q];
+      bi = i1 + q;
+      bj = bestj[q];
+    }
+  }
+  warp_best(v, bi, bj);
+  if (!bottom) {
+    __syncwarp();
+    if (lane == writer) {
+      int32_t* out = a.bests + (static_cast<size_t>(k) * a.B + b) * 3;
+      out[0] = v;
+      out[1] = bi;
+      out[2] = bj;
+      st_release(out_ready, rl + 1);
+    }
+    return;
+  }
+  if (!top) {  // every band above has published its best
+    wait_ready(in_ready, rl + 1);
+    for (int kk = lane; kk < k; kk += 32) {
+      const int32_t* in = a.bests + (static_cast<size_t>(kk) * a.B + b) * 3;
+      const int v2 = __ldcg(in), r2 = __ldcg(in + 1), c2 = __ldcg(in + 2);
+      if (better(v2, r2, c2, v, bi, bj)) {
+        v = v2;
+        bi = r2;
+        bj = c2;
+      }
+    }
+    warp_best(v, bi, bj);
+  }
+  if (lane == 0) {
+    a.score[b] = v;
+    a.srow[b] = bi;
+    a.scol[b] = bj;
+  }
+}
+
+// Band k (rows kBand*k+1 .. kBand*k+kBand) of problem b, the general step
+// of every mode; see the header.  smem is the warp's dirs ring, (word
+// rows, kRing) words.
+template <int kAlgo, int kMode, int kRows>
+__device__ __forceinline__ void fill_band(const Args& a, int b, int k, int lane,
                           uint32_t* ring) {
   constexpr bool kLocal = kAlgo == kLSW || kAlgo == kBSW;
   constexpr bool kBanded = kAlgo == kBSW;
   constexpr bool kAffine = kAlgo == kANW;
   constexpr bool kDirs = kMode == kModeDirs;
   constexpr bool kLast = kMode == kModeLastRows;
+  constexpr int kBand = 32 * kRows;               // query rows a band
   constexpr int kBits = kAffine ? 4 : 2;          // bits a code
   constexpr int kRpw = 32 / kBits;                // rows a dirs word
   constexpr int kLanesPerWord = kRpw / kRows;    // 4, or 2 for ANW
   constexpr int kWordRows = kBand / kRpw;         // 8, or 16 for ANW
+  static_assert(!kDirs || kRows == 4, "a dirs word spans 4 lanes' rows");
   const int N = a.N;
   // never sweep past the padded widths, whatever the lengths claim
   const int rl_in = a.ref_len[b];
@@ -238,26 +379,16 @@ __device__ void fill_band(const Args& a, int b, int k, int lane,
   const int tb = kAffine && a.open_top != nullptr ? a.open_top[b]
                                                   : a.gap_open;
   const size_t col = static_cast<size_t>(a.B);  // stride of an (N, B) row
-  auto col_border = [&](int i) {  // H[i][0]
-    if (kLocal) return 0;
-    if (kAffine) return i == 0 ? 0 : tb + i * ge;
-    return i * gap;
-  };
-  auto row_border = [&](int j) {  // H[0][j]
-    if (kLocal) return 0;
-    if (kAffine) return j == 0 ? 0 : a.gap_open + j * ge;
-    return j * gap;
-  };
   if (ql == 0) {  // the DP is row 0
     if (k == 0) {
       if (kLast) {
         for (int j = 1 + lane; j <= rl; j += 32) {
-          a.hlast[(j - 1) * col + b] = row_border(j);
+          a.hlast[(j - 1) * col + b] = row_border<kAlgo>(a, j);
           if (kAffine) a.flast[(j - 1) * col + b] = kNeg;
         }
       }
       if (lane == 0) {
-        a.score[b] = row_border(rl);
+        a.score[b] = row_border<kAlgo>(a, rl);
         if (!kLast) {
           a.srow[b] = kLocal ? 0 : ql_in;
           a.scol[b] = kLocal ? 0 : rl_in;
@@ -305,28 +436,23 @@ __device__ void fill_band(const Args& a, int b, int k, int lane,
     const int i = i1 + q;
     row_live[q] = i <= ql;
     qc[q] = row_live[q] ? a.qry[static_cast<size_t>(b) * a.M + i - 1] : 0;
-    border[q] = col_border(i);
+    border[q] = col_border<kAlgo>(a, tb, i);
     f_open[q] = (kAffine && i == 1) ? tb + ge : goe;
     fbit[q] = i == 1 ? 0u : kFExtend;
     h[q] = hl[q] = border[q];
     f[q] = e[q] = kNeg;
     bestv[q] = bestj[q] = 0;
   }
-  auto wait_until = [&](int v) {  // band k-1's ready word reaches v
-    while (!__all_sync(kFull, ld_acquire(in_ready) >= v)) {
-      __nanosleep(64);
-    }
-  };
   // band k-1 has published columns 1..cols of its bottom row; a local
   // band with rlen = 0 waits for the band above's last release (1), so
   // the chain of bests holds with no column to wait on
   auto wait_for = [&](int cols) {
-    if (!top) wait_until(kLocal && rl == 0 ? 1 : min(cols, rl));
+    if (!top) wait_ready(in_ready, kLocal && rl == 0 ? 1 : min(cols, rl));
   };
   // the incoming row H[i0][j] (F[i0][j]) and ref[j-1], 32 columns a chunk
   auto load_h = [&](int j) {
     if (j > rl) return 0;
-    return top ? row_border(j) : __ldcg(in_h + j - 1);
+    return top ? row_border<kAlgo>(a, j) : __ldcg(in_h + j - 1);
   };
   auto load_f = [&](int j) {
     return (top || j > rl) ? kNeg : __ldcg(in_f + j - 1);
@@ -353,9 +479,9 @@ __device__ void fill_band(const Args& a, int b, int k, int lane,
   int cur_h = load_h(1 + lane), cur_c = load_c(lane);
   int cur_f = kAffine ? load_f(1 + lane) : kNeg;
   int nxt_h = 0, nxt_c = 0, nxt_f = kNeg;
-  int diag = col_border(i0);  // lane 0's H[i1-1][j-1] at j = 1
+  int diag = col_border<kAlgo>(a, tb, i0);  // lane 0's H[i1-1][j-1] at j = 1
   int c = 0;                  // ref[j-1] of the previous step
-  int last = col_border(ql);  // H[qlen][rlen] when rlen is 0
+  int last = col_border<kAlgo>(a, tb, ql);  // H[qlen][rlen] when rlen is 0
   int blocks = 0;             // dirs: the 32-column blocks stored
   const int steps = rl + writer;
   // a chunk of 32 steps unrolled: the lane a shuffle reads and the step
@@ -517,46 +643,9 @@ __device__ void fill_band(const Args& a, int b, int k, int lane,
   if constexpr (kDirs) {
     for (; blocks * 32 < rl; ++blocks) flush(blocks);
   }
-  if (kLocal) {
-    int v = 0, bi = 0, bj = 0;  // the lane's best, its rows in order
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      if (bestv[q] > v) {
-        v = bestv[q];
-        bi = i1 + q;
-        bj = bestj[q];
-      }
-    }
-    warp_best(v, bi, bj);
-    if (!bottom) {
-      __syncwarp();
-      if (lane == writer) {
-        int32_t* out = a.bests + (static_cast<size_t>(k) * a.B + b) * 3;
-        out[0] = v;
-        out[1] = bi;
-        out[2] = bj;
-        st_release(out_ready, rl + 1);
-      }
-      return;
-    }
-    if (!top) {  // every band above has published its best
-      wait_until(rl + 1);
-      for (int kk = lane; kk < k; kk += 32) {
-        const int32_t* in = a.bests + (static_cast<size_t>(kk) * a.B + b) * 3;
-        const int v2 = __ldcg(in), r2 = __ldcg(in + 1), c2 = __ldcg(in + 2);
-        if (better(v2, r2, c2, v, bi, bj)) {
-          v = v2;
-          bi = r2;
-          bj = c2;
-        }
-      }
-      warp_best(v, bi, bj);
-    }
-    if (lane == 0) {
-      a.score[b] = v;
-      a.srow[b] = bi;
-      a.scol[b] = bj;
-    }
+  if constexpr (kLocal) {
+    finish_local<kRows>(a, b, k, lane, writer, top, bottom, rl, ql, i1,
+                        bestv, bestj, in_ready, out_ready);
   } else if (bottom && lane == writer) {
     a.score[b] = last;
     if (!kLast) {
@@ -566,90 +655,392 @@ __device__ void fill_band(const Args& a, int b, int k, int lane,
   }
 }
 
-template <int kAlgo, int kMode>
-__global__ void __launch_bounds__(kWarps * 32) band_fill_kernel(Args a) {
-  constexpr int kRingWords =
-      kMode == kModeDirs ? (kAlgo == kANW ? 16 : 8) * kRing : 1;
-  __shared__ uint32_t ring[kWarps][kRingWords];
+// Whether band k of problem b takes the scores step: every row of it is
+// live (qlen reaches its end) and holds A, C, G or T, and the scores fit
+// the profile's bytes.
+template <int kRows>
+__device__ __forceinline__ bool takes_scores_step(const Args& a, int b, int k, int lane) {
+  const int ql = min(max(a.qry_len[b], 0), a.M);
+  const int i0 = k * 32 * kRows;
+  if (!a.packed || i0 + 32 * kRows > ql) return false;
+  const uint8_t* qp = a.qry + static_cast<size_t>(b) * a.M + i0 + kRows * lane;
+  bool base = true;
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) base = base && is_base(qp[q]);
+  return __all_sync(kFull, base);
+}
+
+// Band k of problem b, the scores step: every row live and a base (see
+// takes_scores_step and the header).  stage is the warp's kStageWords.
+template <int kAlgo, int kRows>
+__device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, int lane,
+                                 uint32_t* stage) {
+  constexpr bool kLocal = kAlgo == kLSW || kAlgo == kBSW;
+  constexpr bool kBanded = kAlgo == kBSW;
+  constexpr bool kAffine = kAlgo == kANW;
+  constexpr int kBand = 32 * kRows;
+  constexpr int kGroup = scores_group(kAlgo, kRows);
+  const int N = a.N;
+  const int rl_in = a.ref_len[b];
+  const int ql_in = a.qry_len[b];
+  const int rl = min(max(rl_in, 0), N);
+  const int ql = min(max(ql_in, 0), a.M);
+  const int gap = a.gap;
+  const int ge = a.gap_extend;
+  const int goe = a.gap_open + ge;
+  const int tb = kAffine && a.open_top != nullptr ? a.open_top[b]
+                                                  : a.gap_open;
+  const int i0 = k * kBand;
+  const bool top = k == 0;
+  const bool bottom = i0 + kBand == ql;
+  const size_t slot = static_cast<size_t>(b) * 2;
+  const int32_t* in_h = a.hbuf + (slot + ((k + 1) & 1)) * N;
+  const int32_t* in_f = kAffine ? a.fbuf + (slot + ((k + 1) & 1)) * N
+                                : nullptr;
+  int32_t* out_h = a.hbuf + (slot + (k & 1)) * N;
+  int32_t* out_f = kAffine ? a.fbuf + (slot + (k & 1)) * N : nullptr;
+  const int32_t* in_ready =
+      top ? nullptr : a.ready + static_cast<size_t>(k - 1) * a.B + b;
+  int32_t* out_ready = a.ready + static_cast<size_t>(k) * a.B + b;
+  const uint8_t* rp = a.ref + static_cast<size_t>(b) * N;
+  const int i1 = i0 + kRows * lane + 1;  // this lane's first row
+  // the profile: byte c of prof[q] scores base code c against row i1 + q
+  const uint32_t mis = (static_cast<uint32_t>(a.mismatch) & 0xffu) *
+                       0x01010101u;
+  const uint32_t flip =
+      static_cast<uint32_t>(a.match ^ a.mismatch) & 0xffu;
+  const uint8_t* qp = a.qry + static_cast<size_t>(b) * a.M + i1 - 1;
+  // h: the stored H[i][j] of the previous step (left); BSW's hl: the
+  // unmasked one its row recurrence reads
+  int h[kRows], hl[kRows], f[kRows], e[kRows], bestv[kRows], bestj[kRows];
+  uint32_t prof[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    prof[q] = mis ^ (flip << (8 * ((qp[q] >> 1) & 3)));
+    h[q] = hl[q] = col_border<kAlgo>(a, tb, i1 + q);
+    f[q] = e[q] = kNeg;
+    bestv[q] = bestj[q] = 0;
+  }
+  const int fo0 = kAffine && i1 == 1 ? tb + ge : goe;  // row i1's F open
+  const unsigned width = 2u * static_cast<unsigned>(a.band) - 1u;
+  // the stage: a chunk's window of selectors, [2][64] (entry 32 + s - r
+  // is lane r's at step s: the chunk's codes and the 32 before), lane 0's
+  // incoming H and F, [2][32]; chunk c uses half c % 2
+  uint32_t* win = stage;
+  int32_t* stage_h = reinterpret_cast<int32_t*>(stage + 128);
+  int32_t* stage_f = reinterpret_cast<int32_t*>(stage + 192);
+  auto wait_for = [&](int cols) {
+    if (!top) wait_ready(in_ready, kLocal && rl == 0 ? 1 : min(cols, rl));
+  };
+  auto load_h = [&](int j) {
+    if (j > rl) return 0;
+    return top ? row_border<kAlgo>(a, j) : __ldcg(in_h + j - 1);
+  };
+  auto load_f = [&](int j) {
+    return (top || j > rl) ? kNeg : __ldcg(in_f + j - 1);
+  };
+  auto load_sel = [&](int kk) {
+    return code_sel(kk < rl ? static_cast<int>(rp[kk]) : 0);
+  };
+  __syncwarp();  // the warp's last band has read its stage
+  wait_for(32);
+  uint32_t cur_sel = load_sel(lane);  // the codes of the newest chunk staged
+  win[lane] = code_sel(0);
+  win[32 + lane] = cur_sel;
+  stage_h[lane] = load_h(1 + lane);
+  if (kAffine) stage_f[lane] = load_f(1 + lane);
+  // stage the chunk after chunk t0 in the other half
+  auto stage_next = [&](int t0) {
+    const int half = ((t0 >> 5) + 1) & 1;
+    win[half * 64 + lane] = cur_sel;
+    const int base = t0 + 32;
+    if (base < rl) {
+      wait_for(base + 32);
+      cur_sel = load_sel(base + lane);
+      win[half * 64 + 32 + lane] = cur_sel;
+      stage_h[half * 32 + lane] = load_h(base + 1 + lane);
+      if (kAffine) stage_f[half * 32 + lane] = load_f(base + 1 + lane);
+    }
+  };
+  int diag = col_border<kAlgo>(a, tb, i0);  // lane 0's H[i1-1][j-1] at j = 1
+  const int steps = rl + 31;
+  const bool writes = !bottom && lane == 31;  // the band's row goes down
+  // Chunk t0's 32 steps, kGroup at a time.  kIn: some lane may be at
+  // j < 1; kOut: some lane may be past rlen, or the sweep may end.
+  auto chunk = [&](auto in_ramp, auto out_ramp, const int t0) {
+    constexpr bool kIn = decltype(in_ramp)::value;
+    constexpr bool kOut = decltype(out_ramp)::value;
+    __syncwarp();  // the chunk's stage, written in the chunk before
+    const int half = (t0 >> 5) & 1;
+    const uint32_t* ws = win + half * 64 + 32 - lane;
+    const int32_t* hs = stage_h + half * 32;
+    const int32_t* fs = stage_f + half * 32;
+#pragma unroll 1
+    for (int g = 0; g < 32; g += kGroup) {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int s = g + u;
+        const int t = t0 + s;
+        if (kOut && t >= steps) return;
+        if (u == kAhead % kGroup && g == kAhead - kAhead % kGroup) {
+          stage_next(t0);
+        }
+        int up = __shfl_up_sync(kFull, h[kRows - 1], 1);
+        int upf = kNeg;
+        if (kAffine) upf = __shfl_up_sync(kFull, f[kRows - 1], 1);
+        if (lane == 0) {
+          up = hs[s];  // H[i0][t+1]
+          if (kAffine) upf = fs[s];
+        }
+        const uint32_t sel = ws[s];  // ref[j-1]'s selector
+        const int j = t - lane + 1;
+        const bool before = kIn && j < 1;  // a lane at j <= 0: H[i][0]
+        const bool counts = (!kIn || j >= 1) && (!kOut || j <= rl);
+        const unsigned xb = static_cast<unsigned>(j - i1) +
+                            static_cast<unsigned>(a.band - 1);
+        int d = diag;  // H[i-1][j-1] of the lane's first row
+        diag = up;
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          const int mm = d + prmt(prof[q], mis, sel);
+          const int left = kBanded ? hl[q] : h[q];
+          d = h[q];  // the next row's diag
+          int val;
+          if (kAffine) {
+            const int ev = __viaddmax_s32(left, goe, e[q] + ge);
+            const int fv = __viaddmax_s32(up, q == 0 ? fo0 : goe, upf + ge);
+            val = __vimax3_s32(fv, mm, ev);
+            e[q] = before ? kNeg : ev;  // E[i][0] = -inf
+            f[q] = upf = fv;
+          } else if (kLocal) {
+            const bool in_band =
+                !kBanded || xb - static_cast<unsigned>(q) < width;
+            // the row above's term last: one operation on the chain
+            val = in_band
+                      ? __viaddmax_s32_relu(up, gap,
+                                            __viaddmax_s32(left, gap, mm))
+                      : __vimax_s32_relu(left + gap, 0);
+            if (kBanded) hl[q] = before ? 0 : val;
+            if (kBanded && !in_band) val = 0;
+          } else {
+            val = __viaddmax_s32(up, gap, __viaddmax_s32(left, gap, mm));
+          }
+          h[q] = before ? col_border<kAlgo>(a, tb, i1 + q) : val;
+          up = h[q];  // the next row's up
+          if (kLocal) {
+            if (kIn || kOut) {
+              if (counts && h[q] > bestv[q]) {
+                bestv[q] = h[q];
+                bestj[q] = j;
+              }
+            } else {  // the first column of a row's best keeps it
+              bool keep;
+              bestv[q] = __vibmax_s32(bestv[q], h[q], &keep);
+              bestj[q] = keep ? bestj[q] : j;
+            }
+          }
+        }
+        // the last lane's column t - 30 goes down; a local band's last
+        // release follows its best
+        if (writes && (!kIn || t >= 31)) {
+          out_h[t - 31] = h[kRows - 1];
+          if (kAffine) out_f[t - 31] = f[kRows - 1];
+        }
+        const int jw = t - 30;
+        if (kIn || kOut) {
+          if (!bottom && jw >= 1 && (kLocal ? jw < rl : jw <= rl) &&
+              ((jw & 31) == 0 || jw == rl)) {
+            __syncwarp();  // this chunk's loads, on every lane, come first
+            if (lane == 31) st_release(out_ready, jw);
+          }
+        } else if (u == 30 % kGroup && g == 30 - 30 % kGroup && !bottom) {
+          __syncwarp();
+          if (lane == 31) st_release(out_ready, jw);  // jw = t0
+        }
+      }
+    }
+  };
+  using Yes = Flag<true>;
+  using No = Flag<false>;
+  chunk(Yes(), Yes(), 0);
+  int t0 = 32;
+  for (; t0 + 32 <= rl; t0 += 32) chunk(No(), No(), t0);
+  for (; t0 < steps; t0 += 32) chunk(No(), Yes(), t0);
+  if constexpr (kLocal) {
+    finish_local<kRows>(a, b, k, lane, 31, top, bottom, rl, ql, i1, bestv,
+                        bestj, in_ready, out_ready);
+  } else if (bottom && lane == 31) {  // H[qlen][rlen], or H[qlen][0]
+    a.score[b] = h[kRows - 1];
+    a.srow[b] = ql_in;
+    a.scol[b] = rl_in;
+  }
+}
+
+// The persistent warps' loop: take (band, problem) tickets until none is
+// left.
+template <int kAlgo, int kMode, int kRows>
+__device__ __forceinline__ void fill_items(const Args& a) {
+  constexpr int kSmemWords =
+      kMode == kModeDirs     ? (kAlgo == kANW ? 16 : 8) * kRing
+      : kMode == kModeScores ? kStageWords
+                             : 1;
+  __shared__ uint32_t smem[kWarps][kSmemWords];
   const int lane = threadIdx.x & 31;
+  uint32_t* mine = smem[threadIdx.x >> 5];
   const unsigned items = static_cast<unsigned>(a.bands) * a.B;
   for (;;) {
     unsigned item = 0;
     if (lane == 0) item = atomicAdd(a.ticket, 1u);
     item = __shfl_sync(kFull, item, 0);
     if (item >= items) return;
-    fill_band<kAlgo, kMode>(a, static_cast<int>(item % a.B),
-                            static_cast<int>(item / a.B), lane,
-                            ring[threadIdx.x >> 5]);
+    const int b = static_cast<int>(item % a.B);
+    const int k = static_cast<int>(item / a.B);
+    if constexpr (kMode == kModeScores) {
+      if (takes_scores_step<kRows>(a, b, k, lane)) {
+        fill_band_scores<kAlgo, kRows>(a, b, k, lane, mine);
+        continue;
+      }
+    }
+    fill_band<kAlgo, kMode, kRows>(a, b, k, lane, mine);
   }
 }
 
-// warps (may be null) receives the persistent warps the launch runs, grid x
-// kWarps, from the occupancy the instantiation's registers allow.
-template <int kAlgo, int kMode>
-cudaError_t launch(const Args& a, cudaStream_t st, int* warps) {
-  auto kernel = band_fill_kernel<kAlgo, kMode>;
+template <int kAlgo, int kMode, int kRows>
+__global__ void __launch_bounds__(kWarps * 32) band_fill_kernel(Args a) {
+  fill_items<kAlgo, kMode, kRows>(a);
+}
+
+// BSW's scores instantiation spills a few registers at the blocks a SM
+// ptxas trims it to under the plain bounds: held to 5 blocks (96
+// registers) it spills none and ran fastest on the H100 (PERF.md)
+template <>
+__global__ void __launch_bounds__(kWarps * 32, 5)
+    band_fill_kernel<kBSW, kModeScores, 4>(Args a) {
+  fill_items<kBSW, kModeScores, 4>(a);
+}
+
+// The warps of an instantiation the card holds at once: blocks a SM (from
+// its registers and shared memory) x SMs x kWarps.
+template <int kAlgo, int kMode, int kRows>
+cudaError_t resident_warps(int* warps) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kWarps * 32, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, band_fill_kernel<kAlgo, kMode, kRows>, kWarps * 32, 0);
   }
+  *warps = per_sm * sms * kWarps;
+  return e;
+}
+
+// warps (may be null) receives the persistent warps the launch runs, grid x
+// kWarps: the resident warps, or one an item.
+template <int kAlgo, int kMode, int kRows>
+cudaError_t launch(const Args& a, cudaStream_t st, int* warps) {
+  int resident = 0;
+  cudaError_t e = resident_warps<kAlgo, kMode, kRows>(&resident);
   if (e != cudaSuccess) return e;
   // the ticket and the ready words start at 0 on every launch
   e = cudaMemsetAsync(
       a.ticket, 0,
       (kHead + static_cast<size_t>(a.bands) * a.B) * sizeof(int32_t), st);
   if (e != cudaSuccess) return e;
-  // persistent warps: as many as fit, or one an item
   const long long items = static_cast<long long>(a.bands) * a.B;
   const long long want = (items + kWarps - 1) / kWarps;
   const int grid = std::max(1, static_cast<int>(std::min<long long>(
-                                   want, static_cast<long long>(per_sm) * sms)));
-  kernel<<<grid, kWarps * 32, 0, st>>>(a);
+                                   want, resident / kWarps)));
+  band_fill_kernel<kAlgo, kMode, kRows><<<grid, kWarps * 32, 0, st>>>(a);
   if (warps != nullptr) *warps = grid * kWarps;
   return cudaGetLastError();
+}
+
+template <int A, int M, int R>
+struct Instance {
+  static constexpr int kAlgo = A, kMode = M, kRows = R;
+};
+
+// f(Instance<...>()) for the instantiation of (algo, mode) at 4 rows a lane,
+// or at 8 (wide: LNW and ANW scores alone); cudaErrorInvalidValue for any
+// other
+template <class F>
+cudaError_t with_instance(int algo, int mode, bool wide, F f) {
+  switch ((algo * 3 + mode) * 2 + (wide ? 1 : 0)) {
+    case (kLNW * 3 + kModeScores) * 2: return f(Instance<kLNW, kModeScores, 4>());
+    case (kLNW * 3 + kModeScores) * 2 + 1: return f(Instance<kLNW, kModeScores, 8>());
+    case (kLNW * 3 + kModeDirs) * 2: return f(Instance<kLNW, kModeDirs, 4>());
+    case (kLNW * 3 + kModeLastRows) * 2: return f(Instance<kLNW, kModeLastRows, 4>());
+    case (kLSW * 3 + kModeScores) * 2: return f(Instance<kLSW, kModeScores, 4>());
+    case (kLSW * 3 + kModeDirs) * 2: return f(Instance<kLSW, kModeDirs, 4>());
+    case (kANW * 3 + kModeScores) * 2: return f(Instance<kANW, kModeScores, 4>());
+    case (kANW * 3 + kModeScores) * 2 + 1: return f(Instance<kANW, kModeScores, 8>());
+    case (kANW * 3 + kModeDirs) * 2: return f(Instance<kANW, kModeDirs, 4>());
+    case (kANW * 3 + kModeLastRows) * 2: return f(Instance<kANW, kModeLastRows, 4>());
+    case (kBSW * 3 + kModeScores) * 2: return f(Instance<kBSW, kModeScores, 4>());
+    case (kBSW * 3 + kModeDirs) * 2: return f(Instance<kBSW, kModeDirs, 4>());
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // int32 words of global scratch the fill needs for B problems of N
-// columns and M rows: the ticket, a ready word a band, two boundary rows a
-// problem (H, and F for ANW) and, for LSW and BSW, a best cell a band.
+// columns and M rows in bands of band_rows: the ticket, a ready word a
+// band, two boundary rows a problem (H, and F for ANW) and, for LSW and
+// BSW, a best cell a band.
 extern "C" long long ta_torch_rowscan_scratch_words(int algo, int mode, int B,
-                                                    int N, int M) {
+                                                    int N, int M,
+                                                    int band_rows) {
   (void)mode;
-  const long long bands = bands_of(M);
+  const long long bands = bands_of(M, band_rows);
   const long long rows = (algo == kANW ? 4LL : 2LL) * B * N;
   const long long bests = (algo == kLSW || algo == kBSW) ? 3LL * bands * B
                                                          : 0LL;
   return kHead + bands * B + rows + bests;
 }
 
+// The warps the card holds at once of the instantiation for (algo, mode,
+// band_rows) (see ta_torch_rowscan_fill), or -1 where none is built or
+// the occupancy query fails.
+extern "C" int ta_torch_rowscan_resident_warps(int algo, int mode,
+                                               int band_rows) {
+  int warps = 0;
+  const cudaError_t e = with_instance(
+      algo, mode, band_rows == 256, [&](auto inst) -> cudaError_t {
+        using I = decltype(inst);
+        if (band_rows != 32 * I::kRows) return cudaErrorInvalidValue;
+        return resident_warps<I::kAlgo, I::kMode, I::kRows>(&warps);
+      });
+  return e == cudaSuccess ? warps : -1;
+}
+
 // algo: 0 = LNW, 1 = LSW, 2 = ANW, 3 = BSW; mode: 0 = scores only, 1 =
 // dirs (MW, B, N), 2 = last rows hlast (and ANW's flast) (N, B) and the
-// score, LNW and ANW only.  open_top (B,) may be null (ANW: gap_open).
-// scratch holds ta_torch_rowscan_scratch_words(algo, mode, B, N, M) words.
-// warps, a host int (may be null), receives the persistent warps launched
-// (0 where nothing is launched); reading it needs no device sync.
+// score, LNW and ANW only.  band_rows: 32 x the rows a lane, 128, or 256
+// for LNW's and ANW's scores mode (kernels/fill.py band_rows picks).
+// open_top (B,) may be null (ANW: gap_open).  scratch holds
+// ta_torch_rowscan_scratch_words(algo, mode, B, N, M, band_rows) int32
+// words.  warps, a host int (may be null), receives the persistent warps
+// launched (0 where nothing is launched); reading it needs no device sync.
 extern "C" int ta_torch_rowscan_fill(
-    int algo, int mode, const void* ref, const void* qry, const void* ref_len,
-    const void* qry_len, const void* open_top, int B, int N, int M,
-    int match, int mismatch, int gap, int gap_open, int gap_extend, int band,
-    void* scratch, void* score, void* srow, void* scol, void* dirs,
-    void* hlast, void* flast, void* stream, int* warps) {
+    int algo, int mode, int band_rows, const void* ref, const void* qry,
+    const void* ref_len, const void* qry_len, const void* open_top, int B,
+    int N, int M, int match, int mismatch, int gap, int gap_open,
+    int gap_extend, int band, void* scratch, void* score, void* srow,
+    void* scol, void* dirs, void* hlast, void* flast, void* stream,
+    int* warps) {
   if (warps != nullptr) *warps = 0;
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const bool local = algo == kLSW || algo == kBSW;
   if (algo < kLNW || algo > kBSW || mode < kModeScores ||
       mode > kModeLastRows || N < 0 || M < 0 || scratch == nullptr ||
-      (mode == kModeLastRows && local)) {
+      (mode == kModeLastRows && local) ||
+      (band_rows != 128 && band_rows != 256)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int bands = bands_of(M);
+  const int bands = bands_of(M, band_rows);
   if (static_cast<long long>(bands) * B >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -657,30 +1048,23 @@ extern "C" int ta_torch_rowscan_fill(
   int32_t* hbuf = w + kHead + static_cast<size_t>(bands) * B;
   int32_t* fbuf = hbuf + static_cast<size_t>(2) * B * N;
   int32_t* bests = fbuf + (algo == kANW ? static_cast<size_t>(2) * B * N : 0);
+  const bool packed = match >= -128 && match <= 127 && mismatch >= -128 &&
+                      mismatch <= 127;
   const Args a{static_cast<const uint8_t*>(ref),
                static_cast<const uint8_t*>(qry),
                static_cast<const int32_t*>(ref_len),
                static_cast<const int32_t*>(qry_len),
                static_cast<const int32_t*>(open_top),
                B, N, M, match, mismatch, gap, gap_open, gap_extend, band,
-               bands, reinterpret_cast<unsigned*>(w), w + kHead, hbuf, fbuf,
-               bests, static_cast<int32_t*>(score),
+               bands, packed, reinterpret_cast<unsigned*>(w), w + kHead,
+               hbuf, fbuf, bests, static_cast<int32_t*>(score),
                static_cast<int32_t*>(srow), static_cast<int32_t*>(scol),
                static_cast<uint32_t*>(dirs), static_cast<int32_t*>(hlast),
                static_cast<int32_t*>(flast)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (algo * 3 + mode) {
-    case kLNW * 3 + kModeScores: e = launch<kLNW, kModeScores>(a, st, warps); break;
-    case kLNW * 3 + kModeDirs: e = launch<kLNW, kModeDirs>(a, st, warps); break;
-    case kLNW * 3 + kModeLastRows: e = launch<kLNW, kModeLastRows>(a, st, warps); break;
-    case kLSW * 3 + kModeScores: e = launch<kLSW, kModeScores>(a, st, warps); break;
-    case kLSW * 3 + kModeDirs: e = launch<kLSW, kModeDirs>(a, st, warps); break;
-    case kANW * 3 + kModeScores: e = launch<kANW, kModeScores>(a, st, warps); break;
-    case kANW * 3 + kModeDirs: e = launch<kANW, kModeDirs>(a, st, warps); break;
-    case kANW * 3 + kModeLastRows: e = launch<kANW, kModeLastRows>(a, st, warps); break;
-    case kBSW * 3 + kModeScores: e = launch<kBSW, kModeScores>(a, st, warps); break;
-    default: e = launch<kBSW, kModeDirs>(a, st, warps); break;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(with_instance(
+      algo, mode, band_rows == 256, [&](auto inst) -> cudaError_t {
+        using I = decltype(inst);
+        return launch<I::kAlgo, I::kMode, I::kRows>(a, st, warps);
+      }));
 }

@@ -41,8 +41,10 @@ KERNELS = ("auto", "stagger", "rowscan", "banded")
 # the H100's SMs: a CPU shard, which runs the plain versions, picks its
 # fill as that card would, so CPU runs take the card's code paths
 CPU_SMS = 132
-# pick_fill's crossover, measured on the H100 (PERF.md section 7)
+# pick_fill's crossover, measured on the H100 (PERF.md section 7): bands
+# of RULE_BAND_ROWS query rows, the band wavefront's when it was read
 RULE_MIN_BANDS = 8
+RULE_BAND_ROWS = 128
 RULE_MAX_PAIRS_PER_SM = 16
 
 
@@ -133,7 +135,7 @@ def pick_fill(algorithm: Algorithm, with_traceback: bool, qry_width: int,
         return "banded"
     if with_traceback:
         return "stagger"
-    bands = -(-qry_width // profiler.BAND_ROWS)
+    bands = -(-qry_width // RULE_BAND_ROWS)
     if bands >= RULE_MIN_BANDS and pairs < RULE_MAX_PAIRS_PER_SM * sms:
         return "rowscan"
     return "stagger"

@@ -120,10 +120,12 @@ def _configure(lib: ctypes.CDLL) -> None:
             ptr, ptr, ptr,               # packed, slots, nev
             ptr,                         # stream
         ],
-        # algo, mode, B, N, M
-        "ta_torch_rowscan_scratch_words": [i32, i32, i32, i32, i32],
+        # algo, mode, B, N, M, band rows
+        "ta_torch_rowscan_scratch_words": [i32, i32, i32, i32, i32, i32],
+        # algo, mode, band rows
+        "ta_torch_rowscan_resident_warps": [i32, i32, i32],
         "ta_torch_rowscan_fill": [
-            i32, i32,                    # algo, mode
+            i32, i32, i32,               # algo, mode, band rows
             ptr, ptr, ptr, ptr,          # ref, qry, ref_len, qry_len
             ptr,                         # open_top
             i32, i32, i32,               # B, N, M

@@ -28,6 +28,11 @@ hand-written kernel (csrc/rowscan_fill.cu) or raise -- nothing falls back.
 `band_warps` holds the persistent warps of the last launch (the kernel's
 grid x warps a block, which the entry point sizes from the occupancy the
 instantiation's registers allow, and hands back through a host int).
+The kernel is a band wavefront, a warp a band of `band_rows` query rows:
+the launch's band size, chosen here and passed to the entry point, which
+refuses one it was not built for; `launch_band_rows` and
+`launch_scores_step` keep the last launch's, for the counters
+(runtime/profiler.py count_fill).
 Unlike the JAX wrapper, B is not padded to 128 lanes, so callers compare
 real rows.
 """
@@ -35,6 +40,7 @@ real rows.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -58,6 +64,58 @@ _MODE_SCORES, _MODE_DIRS, _MODE_LAST_ROWS = 0, 1, 2
 launches = 0  # fill kernel launches (dirs or scores-only)
 last_rows_launches = 0  # last-row kernel launches
 band_warps = 0  # persistent warps of the last launch, either mode
+launch_band_rows = 128  # query rows a band of the last launch
+# whether the last launch's full bands could take the scores step
+launch_scores_step = False
+
+# Query rows a band of the wavefront (32 lanes' rows): BAND_ROWS (4 a
+# lane) in every mode, or WIDE_BAND_ROWS (8 a lane) for a scores-only
+# instantiation built with them (LNW and ANW: the entry point says which)
+# on a launch whose wide bands are at least WIDE_BANDS_A_WARP a resident
+# warp.  The dirs and last-row modes keep 4: a 16-row dirs word spans 4
+# lanes.  The kernel refuses any other.
+BAND_ROWS = 128
+WIDE_BAND_ROWS = 256
+# on the H100, 8 rows a lane led 4 on full launches and lost on a
+# near-empty card (PERF.md section 6)
+WIDE_BANDS_A_WARP = 5
+
+
+def band_rows(scores: bool, b: int, m: int, resident_warps) -> int:
+    """Query rows a band of the wavefront for a launch over b problems of
+    m padded query rows: the one band size the launcher, the scratch and
+    the counters read.  resident_warps(rows) gives the warps the card
+    holds at once of the instantiation with bands of `rows`, or a count
+    below 1 where none is built."""
+    if scores:
+        warps = resident_warps(WIDE_BAND_ROWS)
+        if 0 < warps and (b * bands_of(m, WIDE_BAND_ROWS)
+                          >= WIDE_BANDS_A_WARP * warps):
+            return WIDE_BAND_ROWS
+    return BAND_ROWS
+
+
+@functools.cache
+def _resident_warps(device: torch.device, algorithm: Algorithm, mode: int,
+                    rows: int) -> int:
+    """The warps `device` holds at once of one instantiation (its
+    occupancy x SMs), -1 where none is built for `rows`
+    (csrc/rowscan_fill.cu ta_torch_rowscan_resident_warps)."""
+    with torch.cuda.device(device):
+        return _build.library().ta_torch_rowscan_resident_warps(
+            _ALGO_CODE[algorithm], mode, rows)
+
+
+def bands_of(m: int, rows: int) -> int:
+    """Bands a problem of a bucket of m padded query rows (at least
+    one: a problem with qlen 0 is row 0)."""
+    return max(1, -(-m // rows))
+
+
+def profile_fits(params: AlignmentParams) -> bool:
+    """Whether match and mismatch fit the scores step's profile bytes
+    (signed); else every band takes the general step."""
+    return all(-128 <= v <= 127 for v in (params.match, params.mismatch))
 
 
 def rows_per_word(algo: Algorithm) -> int:
@@ -313,7 +371,7 @@ def last_rows_reference(
 
 def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
                    qry_len, open_top=None):
-    global band_warps
+    global band_warps, launch_band_rows, launch_scores_step
     lib = _build.library()
     dev = ref_tokens.device
     b, n = ref_tokens.shape
@@ -321,6 +379,8 @@ def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
     i32 = torch.int32
     affine = algorithm.is_affine
     last_rows = mode == _MODE_LAST_ROWS
+    rows = band_rows(mode == _MODE_SCORES, b, m,
+                     lambda r: _resident_warps(dev, algorithm, mode, r))
     with torch.cuda.device(dev):
         scores = torch.empty(b, dtype=i32, device=dev)
         srow = scol = dirs = hlast = flast = None
@@ -338,11 +398,11 @@ def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
         # wavefront's ticket and ready words (reset by the launch), its
         # boundary rows and, for LSW and BSW, each band's best cell
         words = lib.ta_torch_rowscan_scratch_words(
-            _ALGO_CODE[algorithm], mode, b, n, m)
+            _ALGO_CODE[algorithm], mode, b, n, m, rows)
         scratch = torch.empty(words, dtype=i32, device=dev)
         warps = ctypes.c_int(0)
         rc = lib.ta_torch_rowscan_fill(
-            _ALGO_CODE[algorithm], mode,
+            _ALGO_CODE[algorithm], mode, rows,
             ref_tokens.data_ptr(), qry_tokens.data_ptr(),
             ref_len.data_ptr(), qry_len.data_ptr(),
             open_top.data_ptr() if open_top is not None else None,
@@ -362,6 +422,8 @@ def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
         raise RuntimeError(
             f"rowscan fill kernel launch failed: CUDA error {rc}")
     band_warps = warps.value
+    launch_band_rows = rows
+    launch_scores_step = mode == _MODE_SCORES and profile_fits(params)
     return scores, srow, scol, dirs, hlast, flast
 
 

@@ -15,7 +15,8 @@ goes through PhaseTimer.phase.  A recording timer (record=True; the CLI's
 launch counts of the engine-path kernels (reset_launch_counts,
 launch_counts), which show that a run went through the kernels, what
 each fill launch held (count_fill), and what each launch of the band
-wavefront ran on (count_band: its persistent warps).
+wavefront ran on (count_band: its persistent warps, and the cells its
+scores step took in steady chunks).
 """
 
 from __future__ import annotations
@@ -151,8 +152,6 @@ def chrome_trace(timer: PhaseTimer, counts: dict) -> dict:
                           "counts": counts}}
 
 
-# rows of one band of the row sweep's wavefront (csrc/rowscan_fill.cu)
-BAND_ROWS = 128
 # what the fill launches held since the last reset; count_fill adds to it
 FILL_KEYS = ("fill_counted", "fill_pairs", "fill_warps", "fill_cells",
              "fill_chain_cells")
@@ -160,8 +159,10 @@ _fill = dict.fromkeys(FILL_KEYS, 0)
 # what the band wavefront's launches (B2, every mode) ran on; count_band
 # adds to it
 BAND_KEYS = ("fill_band_counted", "fill_band_warps_max",
-             "fill_band_warp_cells")
+             "fill_band_warp_cells", "fill_band_steady_cells")
 _band = dict.fromkeys(BAND_KEYS, 0)
+# columns of a chunk of the band wavefront's sweep (csrc/rowscan_fill.cu)
+BAND_CHUNK = 32
 
 
 def band_cells(rlen, qlen, band: int) -> np.ndarray:
@@ -180,7 +181,22 @@ def band_cells(rlen, qlen, band: int) -> np.ndarray:
             - corner(rlen - band, qlen))
 
 
-def fill_work(kernel: str, rlen, qlen, band: int | None = None) -> dict:
+def steady_cells(rlen, qlen, band_rows: int) -> int:
+    """The cells the band wavefront's scores step computes in steady
+    chunks: in each full band (all but a partial bottom band, qlen //
+    band_rows a pair), the chunks of 32 steps after the first whose
+    columns all lie in [1, rlen], rlen // 32 - 1 of them, each 32 steps of
+    band_rows cells.  A shape count: it takes every full band to hold
+    bases alone, as the kernel's choice also asks."""
+    rlen = np.asarray(rlen, np.int64)
+    qlen = np.asarray(qlen, np.int64)
+    full = np.clip(qlen, 0, None) // band_rows
+    chunks = np.clip(rlen // BAND_CHUNK - 1, 0, None)
+    return int(np.sum(full * chunks) * BAND_CHUNK * band_rows)
+
+
+def fill_work(kernel: str, rlen, qlen, band: int | None = None,
+              band_rows: int | None = None) -> dict:
     """What one fill launch over pairs of these lengths holds, by
     FILL_KEYS: the launch (1); its real pairs, those with cells to fill
     (a bucket's padding rows have none); the warps it gives them; their
@@ -189,9 +205,10 @@ def fill_work(kernel: str, rlen, qlen, band: int | None = None) -> dict:
 
     Warps by kernel: "stagger" (B1, and its last-row variant) and
     "banded" (B3) run one warp a pair; "rowscan" (B2's band wavefront,
-    and its last-row mode) one warp a 128-row band, ceil(qlen / 128) a
-    pair, which persistent warps take in turn (the card holds fewer at
-    once on large launches)."""
+    and its last-row mode) one warp a band of `band_rows` query rows
+    (kernels/fill.py band_rows), ceil(qlen / band_rows) a pair, which
+    persistent warps take in turn (the card holds fewer at once on large
+    launches)."""
     rlen = np.asarray(rlen, np.int64)
     qlen = np.asarray(qlen, np.int64)
     cells = band_cells(rlen, qlen, band) if kernel == "banded" \
@@ -199,7 +216,9 @@ def fill_work(kernel: str, rlen, qlen, band: int | None = None) -> dict:
     real = cells > 0
     pairs = int(np.count_nonzero(real))
     if kernel == "rowscan":
-        warps = int(np.sum(-(-qlen[real] // BAND_ROWS)))
+        if band_rows is None:
+            raise ValueError("a rowscan launch needs its band_rows")
+        warps = int(np.sum(-(-qlen[real] // band_rows)))
     elif kernel in ("stagger", "banded"):
         warps = pairs
     else:
@@ -212,30 +231,43 @@ def fill_work(kernel: str, rlen, qlen, band: int | None = None) -> dict:
 def count_fill(kernel: str, rlen, qlen, band: int | None = None) -> None:
     """Add one fill launch to the counters (fill_work): called where the
     launch is made, from the lengths the host holds, never from a device
-    tensor.  A "rowscan" launch, the band wavefront's, is also counted by
-    count_band, with the persistent warps its wrapper read back from that
-    launch (kernels/fill.py band_warps)."""
-    for key, value in fill_work(kernel, rlen, qlen, band).items():
-        _fill[key] += value
+    tensor.  A "rowscan" launch, the band wavefront's, is counted in the
+    band size its wrapper launched (kernels/fill.py launch_band_rows), and
+    by count_band, with the persistent warps the wrapper read back from
+    that launch (band_warps) and, where its full bands could take the
+    scores step (launch_scores_step), its steady cells."""
+    band_rows = steady = None
     if kernel == "rowscan":
         from tpu_align_torch.kernels import fill
 
-        count_band(fill.band_warps, rlen, qlen)
+        band_rows = fill.launch_band_rows
+        steady = band_rows if fill.launch_scores_step else None
+    for key, value in fill_work(kernel, rlen, qlen, band,
+                                band_rows).items():
+        _fill[key] += value
+    if kernel == "rowscan":
+        count_band(fill.band_warps, rlen, qlen, steady)
 
 
-def count_band(warps: int, rlen, qlen) -> None:
+def count_band(warps: int, rlen, qlen,
+               steady_rows: int | None = None) -> None:
     """Add one launch of the band wavefront (B2) to the BAND_KEYS
     counters: the launch (1); the most persistent warps any launch ran
     (warps: the launch's grid x warps a block, which the card's occupancy
-    for the instantiation's registers caps); and its real cells, rlen x
-    qlen, over its warps, the cells each persistent warp took on average.
-    A launch of no warps adds no cells."""
+    for the instantiation's registers caps); its real cells, rlen x qlen,
+    over its warps, the cells each persistent warp took on average; and,
+    for a scores launch whose full bands of steady_rows rows take the
+    scores step (None for any other), the cells of their steady chunks
+    (steady_cells).  A launch of no warps adds no cells a warp."""
     cells = int(np.sum(np.asarray(rlen, np.int64)
                        * np.asarray(qlen, np.int64)))
     _band["fill_band_counted"] += 1
     _band["fill_band_warps_max"] = max(_band["fill_band_warps_max"], warps)
     if warps > 0:
         _band["fill_band_warp_cells"] += cells / warps
+    if steady_rows is not None:
+        _band["fill_band_steady_cells"] += steady_cells(rlen, qlen,
+                                                        steady_rows)
 
 
 def _counter_modules():

@@ -5,8 +5,9 @@ rule was read from.
 B1 (csrc/stagger_fill.cu) runs one warp a pair, its 128-row bands in
 order, so a launch takes its longest pair's rows x columns at one warp's
 speed however few pairs it holds; B2 (csrc/rowscan_fill.cu
-`band_fill_kernel`) puts each 128-row band on its own warp, band k+1
-trailing band k, so a few long pairs fill the card too, at a dearer step.
+`band_fill_kernel`) puts each band (128 rows, or 256 where
+`kernels/fill.py` `band_rows` takes them) on its own warp, band k+1
+trailing band k, so a few long pairs fill the card too.
 For each aligner, pair length L (query and reference both L bp, the query
 the reference with 1 % substitutions) and pairs per bucket, both wrappers
 are timed as the engine calls them (`fill_stagger_bucket_async`,
@@ -114,8 +115,11 @@ def measure(algo: Algorithm, length: int, pairs: int, sms: int) -> dict:
         ms[k] += _time(calls[k], reps[k])
     b1, b2 = (statistics.median(ms[k]) for k in ("stagger", "rowscan"))
     cells = pairs * length * length
+    calls["rowscan"]()
+    rows = rowscan.launch_band_rows  # the band size B2's launches took
     return {"aligner": algo.value, "length": length, "pairs": pairs,
-            "bands": -(-length // 128), "pairs_per_sm": pairs / sms,
+            "bands": -(-length // 128), "b2_band_rows": rows,
+            "pairs_per_sm": pairs / sms,
             "b1_ms": b1, "b2_ms": b2, "b1_over_b2": b1 / b2,
             "b1_gcups": cells / b1 / 1e6, "b2_gcups": cells / b2 / 1e6,
             "reps": [reps["stagger"] * 2, reps["rowscan"] * 2],
@@ -144,12 +148,13 @@ def main(argv=None) -> int:
     if args.json:
         with open(args.json, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in lines)
-    print("| aligner | L | pairs | B1 ms | B2 ms | B1/B2 | picks |")
-    print("|---|---|---|---|---|---|---|")
+    print("| aligner | L | pairs | B1 ms | B2 ms | B1/B2 | B2 rows | picks |")
+    print("|---|---|---|---|---|---|---|---|")
     for r in lines:
         print(f"| {r['aligner']} | {r['length']} | {r['pairs']} | "
               f"{r['b1_ms']:.4f} | {r['b2_ms']:.4f} | "
-              f"{r['b1_over_b2']:.2f} | {r['picks']} |")
+              f"{r['b1_over_b2']:.2f} | {r['b2_band_rows']} | "
+              f"{r['picks']} |")
     return 0
 
 

@@ -199,6 +199,76 @@ def rowscan_seam_bucket(device):
     return b, t
 
 
+# around the band wavefront's scores step (csrc/rowscan_fill.cu
+# fill_band_scores): its 128- and 256-row bands (4 and 8 rows a lane), full
+# and partial, its ramps (rlen under 64) and its 32-column chunks
+SCORES_STEP_QLENS = (1, 31, 32, 33, 127, 128, 129, 255, 256, 257, 384, 511,
+                     512, 513)
+SCORES_STEP_RLENS = (1, 31, 32, 33, 63, 64, 65, 96, 97, 160)
+# an LSW and BSW tie as the first ROWSCAN_TIES pair's, 128 rows lower: at
+# (256, 256), the last row of a 256-row band, and (320, 320)
+SCORES_STEP_TIES = (
+    ("G" * 240 + _TIE_X + "G" * 48 + _TIE_X + "G" * 8,
+     "T" * 240 + _TIE_X + "T" * 48 + _TIE_X + "T" * 8, (48, 256, 256)),
+)
+
+
+def scores_step_pairs() -> list[tuple[bytes, bytes]]:
+    """Every (reference, query) pair of SCORES_STEP_RLENS x
+    SCORES_STEP_QLENS, random ACGT queries holding a copy of part of their
+    reference (so local scores vary), some with codes the scores step's
+    profile does not cover: N in the reference (every 5th) or the query
+    (every 7th), lowercase a in the reference (every 9th), and the
+    bucket's pad codes 0 and 1 inside both sequences (every 11th); then the
+    ROWSCAN_TIES, SEAM_LSW_TIES and SCORES_STEP_TIES pairs."""
+    import itertools
+
+    rng = np.random.default_rng(47)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k, (r, q) in enumerate(itertools.product(SCORES_STEP_RLENS,
+                                                 SCORES_STEP_QLENS)):
+        ref = letters[rng.integers(0, 4, r)]
+        qry = letters[rng.integers(0, 4, q)]
+        n = min(r, q) // 2
+        if n:  # a copy of part of the reference, 5 % of it substituted
+            at, to = rng.integers(0, r - n + 1), rng.integers(0, q - n + 1)
+            part = ref[at:at + n].copy()
+            hit = rng.random(n) < 0.05
+            part[hit] = letters[rng.integers(0, 4, int(hit.sum()))]
+            qry[to:to + n] = part
+        for every, seq, code in ((5, ref, b"N"), (7, qry, b"N"),
+                                 (9, ref, b"a"), (11, ref, b"\x00"),
+                                 (11, qry, b"\x01"), (11, ref, b"\x01")):
+            if k % every == 0 and seq.size:
+                seq[rng.integers(0, seq.size)] = code[0]
+        pairs.append((ref.tobytes(), qry.tobytes()))
+    return pairs + [(ref.encode(), qry.encode()) for ref, qry, _ in
+                    ROWSCAN_TIES + SEAM_LSW_TIES + SCORES_STEP_TIES]
+
+
+def scores_step_bucket(device):
+    """scores_step_pairs as one ragged bucket on `device` (520 padded
+    query rows: 5 bands of 128, 3 of 256; 512 columns), with a qlen = 0
+    lane and rlen = 0 lanes of qlen 128 and 513 (full and partial bands
+    with no column), the last three, and padding lanes.  Returns (bucket,
+    [ref, qry, ref_len, qry_len])."""
+    from tpu_align_torch.convert import bucket_to_tensors
+    from tpu_align_torch.io.bucketing import BucketSpec, bucketize
+
+    pairs = scores_step_pairs() + [(b"ACGTA", b"ACG"), (b"ACG", b"ACGT" * 32),
+                                   (b"ACG", b"ACGT" * 128 + b"A")]
+    (b,) = bucketize(PairDataset.from_pairs(pairs),
+                     BucketSpec(batch_pairs=len(pairs) + 5,
+                                query_multiple=520, ref_multiple=512))
+    t = list(bucket_to_tensors(b, device))
+    n = b.num_real
+    t[3][n - 3] = 0  # qlen = 0
+    t[2][n - 2] = 0  # rlen = 0, one full band of 128
+    t[2][n - 1] = 0  # rlen = 0, qlen 513
+    return b, t
+
+
 def band_run_pairs(runs=(2, 19, 31), flanks=(40, 50)) -> list[tuple[str, str]]:
     """BSW paths that cross word rows and run along the band's edges: for
     each L in runs, a reference with L extra bases between two stretches
