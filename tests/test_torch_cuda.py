@@ -19,6 +19,8 @@ a whole: hw_parity's 14 configurations over 1,024 mixed-length pairs
 against the oracle, a few seeds of each fuzzer, the all-paths goldens
 through `-all-paths -device cuda`, and the engine on a 2-shard mesh of the
 card (after warmup) against the one-device run, launch counts included;
+the engine's pinned buckets (tokens gathered into page-locked tensors
+that are the uploads' own sources, reused across back-to-back runs);
 the mesh of every visible card, global_stats, and -mesh beyond them; the
 fill counters against the buckets of an engine run and against
 Hirschberg's fill launches; ANW scores of 16 kbp pairs on the band
@@ -1108,6 +1110,93 @@ def test_anw_long_pairs_on_the_band_wavefront(cuda_device):
                    band=16)
     want = reference.scores("anw", scoring, pairs, "cuda")
     np.testing.assert_array_equal(scores, want)
+
+
+def test_cuda_engine_gathers_buckets_into_pinned_memory(cuda_device):
+    """A CUDA engine's buckets hold their tokens in page-locked torch
+    tensors, whose numpy views are the bucket's token arrays; a CPU
+    engine's are plain numpy."""
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+
+    ds = synthetic_dataset(64, min_len=20, max_len=300, seed=21)
+    spec = BucketSpec(batch_pairs=16)
+    buckets = AlignmentEngine(Algorithm.LNW, bucket_spec=spec,
+                              device="cuda")._buckets_of(ds)
+    plain = AlignmentEngine(Algorithm.LNW, bucket_spec=spec,
+                            device="cpu")._buckets_of(ds)
+    assert len(buckets) == len(plain) > 1
+    for b, p in zip(buckets, plain):
+        assert p.pinned is None
+        for t, arr, want in zip(b.pinned, (b.ref_tokens, b.qry_tokens),
+                                (p.ref_tokens, p.qry_tokens)):
+            assert t.is_pinned() and t.dtype == torch.uint8
+            assert arr.ctypes.data == t.data_ptr() and arr.shape == t.shape
+            np.testing.assert_array_equal(arr, want)
+
+
+def test_pinned_bucket_uploads_without_a_staging_copy(cuda_device,
+                                                      monkeypatch):
+    """Every bucket a CUDA engine run gathers crosses the bus from the
+    tensors it was gathered into: each H2D copy of tokens has the
+    gathered tensor's data_ptr for its source, and no token array takes a
+    pin_memory staging copy.  The scores are the plain run's."""
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+
+    ds = synthetic_dataset(96, min_len=20, max_len=300, seed=22)
+    kwargs = dict(bucket_spec=BucketSpec(batch_pairs=16),
+                  with_traceback=False, output="blocks")
+    engine = AlignmentEngine(Algorithm.LNW, device="cuda", **kwargs)
+    engine.warmup(ds)
+    gathered, sources, staged = [], [], []
+    gather, to, pin = engine._gather, torch.Tensor.to, torch.Tensor.pin_memory
+
+    def spy_gather(*args):
+        gathered.append(gather(*args))  # kept: no block is reused
+        return gathered[-1]
+
+    def spy_to(self, *args, **kw):
+        out = to(self, *args, **kw)
+        if (self.device.type, out.device.type, self.dtype) == (
+                "cpu", "cuda", torch.uint8):
+            sources.append(self.data_ptr())
+        return out
+
+    def spy_pin(self, *args, **kw):
+        staged.append(self.dtype)
+        return pin(self, *args, **kw)
+
+    monkeypatch.setattr(engine, "_gather", spy_gather)
+    monkeypatch.setattr(torch.Tensor, "to", spy_to)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", spy_pin)
+    scores = engine.run(ds).scores()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert len(gathered) > 1
+    assert {t.data_ptr() for b in gathered for t in b.pinned} <= set(sources)
+    assert torch.uint8 not in staged
+    want = AlignmentEngine(Algorithm.LNW, device="cpu", **kwargs).run(ds)
+    np.testing.assert_array_equal(scores, want.scores())
+
+
+@pytest.mark.parametrize("max_inflight", [1, 4])
+def test_back_to_back_runs_reuse_pinned_blocks(cuda_device, max_inflight):
+    """Two runs of one CUDA engine on two datasets, back to back: the
+    second gathers into the pinned blocks the first gave back.  Blocks
+    and scores of each equal the plain version's."""
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+
+    kwargs = dict(bucket_spec=BucketSpec(batch_pairs=32), output="blocks")
+    engine = AlignmentEngine(Algorithm.LNW, device="cuda",
+                             max_inflight=max_inflight, **kwargs)
+    plain = AlignmentEngine(Algorithm.LNW, device="cpu", **kwargs)
+    runs = [synthetic_dataset(160, min_len=20, max_len=300, seed=seed)
+            for seed in (23, 24)]
+    got = [engine.run(ds) for ds in runs]
+    torch.cuda.synchronize()
+    for ds, out in zip(runs, got):
+        want = plain.run(ds)
+        assert out.output_bytes() == want.output_bytes()
+        np.testing.assert_array_equal(out.scores(), want.scores())
 
 
 @pytest.mark.parametrize("name", dpx.OPS)

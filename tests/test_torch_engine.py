@@ -28,6 +28,7 @@ from tpu_align_torch.io import BucketSpec, PairDataset
 from tpu_align_torch.io.dataset import write_pair_file
 from tpu_align_torch.native import available
 from tpu_align_torch.runtime.engine import AlignmentEngine, align_file
+from tpu_align_torch.runtime.profiler import PhaseTimer
 from tests.conftest import random_dna
 
 pytestmark = pytest.mark.skipif(
@@ -151,6 +152,56 @@ def test_checkpoint_resume(tmp_path, ds, jax_blocks, output):
     second = run()  # every bucket restored from its checkpoint part
     assert sorted(os.listdir(ckpt)) == parts
     assert first.output_bytes() == second.output_bytes() == jax_blocks[0]
+
+
+@pytest.mark.parametrize("output", ["records", "blocks"])
+def test_checkpoint_resume_of_some_buckets(tmp_path, ds, jax_blocks, output):
+    """Restored buckets and recomputed ones interleave in one dispatch
+    window: a run that finds every other part computes just the rest."""
+    ckpt = str(tmp_path / "ckpt")
+    spec = BucketSpec(batch_pairs=8)
+
+    def run(timer=None):
+        return AlignmentEngine(Algorithm.LNW, bucket_spec=spec, device="cpu",
+                               output=output, max_inflight=2).run(
+            ds, checkpoint_dir=ckpt, timer=timer)
+
+    first = run()
+    parts = sorted(os.listdir(ckpt))
+    assert len(parts) > 2
+    for name in parts[::2]:
+        os.remove(os.path.join(ckpt, name))
+    timer = PhaseTimer(record=True)
+    second = run(timer)
+    assert sorted(os.listdir(ckpt)) == parts
+    assert sum(s.name == "dispatch" for s in timer.spans) == len(parts[::2])
+    assert first.output_bytes() == second.output_bytes() == jax_blocks[0]
+
+
+def test_buckets_are_gathered_as_they_are_dispatched(ds, jax_blocks):
+    """A bucket is gathered just before its dispatch, after the bucket
+    ahead of it was dispatched: with a window of one, after that bucket
+    was finished; with the default window, the first four while bucket 0
+    fills.  The blocks do not depend on the window."""
+    spec = BucketSpec(batch_pairs=8)  # several buckets
+    for window in (1, None):
+        timer = PhaseTimer(record=True)
+        engine = AlignmentEngine(
+            Algorithm.LNW, bucket_spec=spec, device="cpu", output="blocks",
+            **({} if window is None else {"max_inflight": window}))
+        out = engine.run(ds, timer=timer)
+        assert out.output_bytes() == jax_blocks[0]
+        span = {(s.name, s.bucket): s for s in timer.spans
+                if s.bucket is not None}
+        n = len(engine._buckets_of(ds))
+        assert n > 4
+        for k in range(1, n):
+            gather = span["memmgmt.gather", k]
+            assert gather.start_ns >= span["dispatch", k - 1].end_ns
+            if window == 1:
+                assert gather.start_ns >= span["printing.blocks", k - 1].end_ns
+            elif k < engine.max_inflight:
+                assert gather.end_ns <= span["kernel", 0].start_ns
 
 
 def test_phase_timer_accounts_the_main_path(ds):

@@ -56,6 +56,7 @@ from tpu_align_torch.io import (
     parse_pair_text,
     write_pair_file,
 )
+from tpu_align_torch.io.bucketing import gather_bucket, plan_buckets
 from tpu_align_torch.native import binding
 from tpu_align_torch.oracle.api import align_pair
 from tpu_align_torch.utils import pretty, timing_analysis
@@ -128,6 +129,48 @@ def test_bucketize_matches_jax(spec):
             w.padded_cells)
     assert BucketSpec(**spec).padded_shape(37, 200) == \
         jio.BucketSpec(**spec).padded_shape(37, 200)
+
+
+# test_bucketize_matches_jax's specs and ids
+_BUCKET_SPECS = next(m for m in test_bucketize_matches_jax.pytestmark
+                     if m.name == "parametrize")
+
+
+@pytest.mark.parametrize("gather", ["native", "numpy"])
+@pytest.mark.parametrize(*_BUCKET_SPECS.args, **_BUCKET_SPECS.kwargs)
+def test_plan_then_gather_is_bucketize(spec, gather, monkeypatch):
+    """The engine's route, a plan and then each plan's gather, builds
+    bucketize's buckets field for field, through the native gather or
+    its numpy fallback, each writing into the rows it is handed."""
+    ds = PairDataset.from_pairs(PAIRS)
+    want = bucketize(ds, BucketSpec(**spec))
+    if gather == "numpy":
+        monkeypatch.setattr(native, "native_gather_padded",
+                            lambda *a, **k: None)
+    plans = plan_buckets(ds, BucketSpec(**spec))
+    got = [gather_bucket(ds, p, BucketSpec(**spec)) for p in plans]
+    assert len(got) == len(want) > 0
+    for p, g, w in zip(plans, got, want):
+        assert (len(p.idx), p.padded_qry, p.padded_ref) == (
+            w.num_real, w.padded_qry, w.padded_ref)
+        for f in BUCKET_FIELDS:
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f),
+                                          err_msg=f)
+        assert (g.num_real, g.batch, g.pinned) == (w.num_real, w.batch,
+                                                  None)
+
+
+def test_native_gather_refuses_rows_of_another_shape():
+    buf = np.frombuffer(b"ACGTACGT", np.uint8)
+    off, lens = np.array([0, 4]), np.array([4, 3])
+    out = np.empty((2, 8), np.uint8)
+    assert native.native_gather_padded(buf, off, lens, 2, 8, 1,
+                                       out=out) is out
+    np.testing.assert_array_equal(out[1], [65, 67, 71, 1, 1, 1, 1, 1])
+    for bad in (np.empty((2, 7), np.uint8), np.empty((2, 8), np.int8),
+                np.empty((8, 2), np.uint8).T):
+        with pytest.raises(ValueError):
+            native.native_gather_padded(buf, off, lens, 2, 8, 1, out=bad)
 
 
 @pytest.mark.parametrize("engine", ["vectorized", "scalar"])

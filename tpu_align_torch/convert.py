@@ -20,23 +20,36 @@ from tpu_align_torch.kernels.common import BucketFill
 def bucket_to_tensors(bucket: Bucket, device) -> tuple[torch.Tensor, ...]:
     """-> (ref_tokens (B, N) uint8, qry_tokens (B, M) uint8, ref_len (B,)
     int32, qry_len (B,) int32) on `device`.  Raw uint8 tokens cross the
-    bus as they are; on CUDA through pinned staging copies enqueued on the
-    current stream, so the upload never waits for earlier fills."""
-    return arrays_to_tensors(bucket.ref_tokens, bucket.qry_tokens,
-                             bucket.ref_len, bucket.qry_len, device)
+    bus as they are, enqueued on the current stream so the upload never
+    waits for earlier fills: a pinned bucket's (io/bucketing.py
+    gather_bucket(pinned=True)) in one DMA from its own page-locked
+    tensors, any other array through a pinned staging copy."""
+    return arrays_to_tensors(*bucket.upload_tokens, bucket.ref_len,
+                             bucket.qry_len, device)
 
 
 def arrays_to_tensors(ref_tokens, qry_tokens, ref_len, qry_len,
                       device) -> tuple[torch.Tensor, ...]:
-    """bucket_to_tensors of a bucket's four arrays (numpy, or anything
-    np.asarray takes)."""
+    """bucket_to_tensors of a bucket's four arrays: numpy, anything
+    np.asarray takes, or host torch tensors of the same dtypes."""
     device = torch.device(device)
     out = []
     for arr, dtype in ((ref_tokens, np.uint8), (qry_tokens, np.uint8),
                        (ref_len, np.int32), (qry_len, np.int32)):
-        t = torch.from_numpy(np.ascontiguousarray(arr, dtype))
+        if isinstance(arr, torch.Tensor):
+            t = arr
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr, dtype))
         if device.type != "cpu":
-            t = t.pin_memory().to(device, non_blocking=True)
+            # A page-locked tensor (or a view of one) is the DMA's source
+            # as it is.  The copy records its event with torch's caching
+            # host allocator, which hands the block out again only once
+            # that event has passed, so freeing the tensor while the copy
+            # is in flight is safe.  A numpy view of pinned memory has no
+            # such record and takes the staging copy.
+            if not (t is arr and t.is_pinned()):
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=True)
         out.append(t)
     return tuple(out)
 

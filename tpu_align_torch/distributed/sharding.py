@@ -204,10 +204,12 @@ def fill_sharded(
 ):
     """Run the fill data-parallel over the mesh's `pairs` axis.
 
-    Inputs are host-global (B, ...) arrays with B divisible by 8 * mesh
-    size (a mesh of one shard takes any B whole).  Returns (scores, srow, scol, dirs-or-None), each a tuple of
-    per-shard tensors on the shards' devices, enqueued on each device's
-    current stream (nothing waits; a CPU shard runs the plain version).
+    Inputs are host-global (B, ...) arrays, or host torch tensors (a
+    pinned bucket's tokens, which upload without a staging copy), with B
+    divisible by 8 * mesh size (a mesh of one shard takes any B whole).
+    Returns (scores, srow, scol, dirs-or-None), each a tuple of per-shard
+    tensors on the shards' devices, enqueued on each device's current
+    stream (nothing waits; a CPU shard runs the plain version).
     kernel selects the fill ("stagger" default, "rowscan", or "banded" --
     forced for the banded aligner); "auto" picks one a shard by its shape
     (pick_fill: the shard's real pairs, its padded query rows and its
@@ -227,15 +229,19 @@ def fill_sharded(
     n = mesh.size
     if n > 1 and b % (8 * n):
         raise ValueError(f"batch {b} not divisible by 8*{n} devices")
-    host = tuple(np.asarray(a) for a in (ref_tokens, qry_tokens, ref_len,
-                                         qry_len))
+    args = (ref_tokens, qry_tokens, ref_len, qry_len)
+    host = tuple(np.asarray(a) for a in args)
     picks = shard_kernels(mesh, algorithm, with_traceback, kernel,
                           host[1].shape[1], host[2], host[3])
+    # host torch tensors (a pinned bucket's tokens) upload as themselves,
+    # a shard's rows a view of them
+    src = tuple(a if isinstance(a, torch.Tensor) else h
+                for a, h in zip(args, host))
     outs = []
     for dev, rows, pick in zip(mesh.devices, shard_rows(b, n), picks):
         with on_device(dev):
             with timer.phase("dispatch.upload"):
-                tensors = arrays_to_tensors(*(a[rows] for a in host), dev)
+                tensors = arrays_to_tensors(*(a[rows] for a in src), dev)
             with timer.phase("dispatch.enqueue"):
                 if pick == "banded":
                     out = fill_banded_bucket_async(

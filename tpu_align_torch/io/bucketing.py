@@ -17,6 +17,7 @@ never look like a match; kernels additionally mask by true lengths.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 
@@ -69,6 +70,9 @@ class Bucket:
     qry_len: np.ndarray  # (B,) int32
     pair_ids: np.ndarray  # (B,) int64
     num_real: int
+    # gather_bucket(pinned=True): the page-locked (ref, qry) torch tensors
+    # that own ref_tokens' and qry_tokens' memory
+    pinned: tuple | None = None
 
     @property
     def batch(self) -> int:
@@ -91,55 +95,87 @@ class Bucket:
     def padded_cells(self) -> int:
         return self.batch * self.padded_qry * self.padded_ref
 
+    @property
+    def upload_tokens(self) -> tuple:
+        """(ref, qry) tokens as an upload takes them: the pinned tensors
+        where the gather made them, else the numpy arrays."""
+        return self.pinned or (self.ref_tokens, self.qry_tokens)
+
+
+class BucketPlan(NamedTuple):
+    """One bucket as planned, before its gather: its pairs' dataset
+    indices (input order) and its padded query and reference widths."""
+
+    idx: np.ndarray
+    padded_qry: int
+    padded_ref: int
+
 
 def _gather_padded(buf: np.ndarray, off: np.ndarray, lens: np.ndarray,
-                   width: int, pad: int, rows: int) -> np.ndarray:
-    """Flat-buffer -> (rows, width) padded token gather: threaded native
-    memcpy pass when available, vectorized numpy otherwise."""
+                   pad: int, out: np.ndarray) -> None:
+    """Flat-buffer -> padded token rows, written into `out` (rows, width)
+    uint8: threaded native memcpy pass when available, vectorized numpy
+    otherwise."""
     n = len(off)
     if n:
         from tpu_align_torch.native import native_gather_padded
 
-        out = native_gather_padded(buf, off, lens, rows, width, pad)
-        if out is not None:
-            return out
-    out = np.full((rows, width), pad, np.uint8)
+        if native_gather_padded(buf, off, lens, *out.shape, pad,
+                                out=out) is not None:
+            return
+    out.fill(pad)
     if n == 0 or buf.size == 0:  # all-empty dataset: nothing to gather
-        return out
-    col = np.arange(width, dtype=np.int64)
+        return
+    col = np.arange(out.shape[1], dtype=np.int64)
     pos = np.minimum(off[:, None] + col, buf.size - 1)
     np.copyto(out[:n], buf[pos], where=col < lens[:, None])
-    return out
 
 
-def _make_bucket(ds: PairDataset, idx: np.ndarray, mq: int, nr: int,
-                 pair_multiple: int) -> Bucket:
+def _token_rows(rows: int, width: int, pinned: bool):
+    """-> (owning torch tensor or None, (rows, width) uint8 numpy array)."""
+    if not pinned:
+        return None, np.empty((rows, width), np.uint8)
+    import torch
+
+    t = torch.empty((rows, width), dtype=torch.uint8, pin_memory=True)
+    return t, t.numpy()
+
+
+def gather_bucket(ds: PairDataset, plan: BucketPlan,
+                  spec: BucketSpec | None = None,
+                  pinned: bool = False) -> Bucket:
+    """A plan's bucket: its pairs' tokens gathered into padded rows, its
+    lengths and pair ids (the plan's indices) beside them.
+
+    pinned=True gathers the tokens straight into page-locked torch tensors
+    from torch's caching host allocator, kept in Bucket.pinned, whose
+    numpy views are ref_tokens and qry_tokens: an upload from them
+    (convert.arrays_to_tensors) is one DMA, with no staging copy."""
+    spec = spec or BucketSpec()
+    idx, mq, nr = plan
     b_real = len(idx)
-    b = _round_up(b_real, pair_multiple)
+    b = _round_up(b_real, spec.pair_multiple)
     rl = ds.ref_len[idx]
     ql = ds.qry_len[idx]
-    ref_tokens = _gather_padded(ds.buffer, ds.ref_off[idx], rl, nr,
-                                PAD_REF, b)
-    qry_tokens = _gather_padded(ds.buffer, ds.qry_off[idx], ql, mq,
-                                PAD_QRY, b)
+    ref_t, ref_tokens = _token_rows(b, nr, pinned)
+    qry_t, qry_tokens = _token_rows(b, mq, pinned)
+    _gather_padded(ds.buffer, ds.ref_off[idx], rl, PAD_REF, ref_tokens)
+    _gather_padded(ds.buffer, ds.qry_off[idx], ql, PAD_QRY, qry_tokens)
     ref_len = np.zeros(b, np.int32)
     qry_len = np.zeros(b, np.int32)
     pair_ids = np.full(b, -1, np.int64)
     ref_len[:b_real] = rl
     qry_len[:b_real] = ql
     pair_ids[:b_real] = idx
-    return Bucket(ref_tokens, qry_tokens, ref_len, qry_len, pair_ids, b_real)
+    return Bucket(ref_tokens, qry_tokens, ref_len, qry_len, pair_ids, b_real,
+                  pinned=(ref_t, qry_t) if pinned else None)
 
 
-def bucketize(ds: PairDataset, spec: BucketSpec | None = None,
-              timer=None) -> list[Bucket]:
-    """Group pairs into fixed-shape buckets, preserving input order within
-    each bucket (output ordering across buckets is restored later by pair id,
-    the job scripts/reorderOutput.py does for the reference).
-
-    timer (a runtime.profiler.PhaseTimer) takes the spans "memmgmt.group"
-    (the sort and split) and "memmgmt.gather" (a bucket's padded token
-    gathers, under the bucket's id: its index in the list returned)."""
+def plan_buckets(ds: PairDataset, spec: BucketSpec | None = None,
+                 timer=None) -> list[BucketPlan]:
+    """bucketize's grouping, without the gathers: pairs grouped by padded
+    shape (a "memmgmt.group" span of `timer`), input order kept within a
+    group, each group cut into plans of at most spec.batch_pairs."""
     if timer is None:
         from tpu_align_torch.runtime.profiler import PhaseTimer
 
@@ -157,15 +193,31 @@ def bucketize(ds: PairDataset, spec: BucketSpec | None = None,
         order = np.lexsort((np.arange(len(ds)), pad_r, pad_q))
         keys = pad_q[order] * (1 << 32) + pad_r[order]
         boundaries = np.flatnonzero(np.diff(keys)) + 1
-        # each group in input order
-        groups = [np.sort(g) for g in np.split(order, boundaries)]
+        plans = []
+        for g in np.split(order, boundaries):
+            g = np.sort(g)  # each group in input order
+            q, r = int(pad_q[g[0]]), int(pad_r[g[0]])
+            plans.extend(BucketPlan(g[s : s + spec.batch_pairs], q, r)
+                         for s in range(0, len(g), spec.batch_pairs))
+    return plans
+
+
+def bucketize(ds: PairDataset, spec: BucketSpec | None = None,
+              timer=None) -> list[Bucket]:
+    """Group pairs into fixed-shape buckets, preserving input order within
+    each bucket (output ordering across buckets is restored later by pair id,
+    the job scripts/reorderOutput.py does for the reference): plan_buckets,
+    then gather_bucket of each plan.
+
+    timer (a runtime.profiler.PhaseTimer) takes the spans "memmgmt.group"
+    (the sort and split) and "memmgmt.gather" (a bucket's padded token
+    gathers, under the bucket's id: its index in the list returned)."""
+    if timer is None:
+        from tpu_align_torch.runtime.profiler import PhaseTimer
+
+        timer = PhaseTimer()
     buckets = []
-    for g in groups:
-        q, r = int(pad_q[g[0]]), int(pad_r[g[0]])
-        for s in range(0, len(g), spec.batch_pairs):
-            chunk = g[s : s + spec.batch_pairs]
-            with timer.on_bucket(len(buckets)), \
-                    timer.phase("memmgmt.gather"):
-                buckets.append(_make_bucket(ds, chunk, q, r,
-                                            spec.pair_multiple))
+    for k, plan in enumerate(plan_buckets(ds, spec, timer)):
+        with timer.on_bucket(k), timer.phase("memmgmt.gather"):
+            buckets.append(gather_bucket(ds, plan, spec))
     return buckets

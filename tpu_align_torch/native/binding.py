@@ -516,16 +516,23 @@ def native_gather_parts(srcs, spans: np.ndarray, part_of: np.ndarray,
 
 def native_gather_padded(buf: np.ndarray, off: np.ndarray, lens: np.ndarray,
                          rows: int, width: int, pad: int,
-                         num_threads: int = 0):
-    """Flat-buffer -> (rows, width) padded token gather (threaded).
-    Returns the uint8 array or None if the library is unavailable."""
+                         num_threads: int = 0, out: np.ndarray | None = None):
+    """Flat-buffer -> (rows, width) padded token gather (threaded), into
+    `out` (a C-contiguous (rows, width) uint8 array, e.g. the numpy view of
+    a pinned tensor) or a new array.  Returns the uint8 array or None if
+    the library is unavailable."""
     lib = _load()
     if lib is None:
         return None
     buf = np.ascontiguousarray(buf, np.uint8)
     off = np.ascontiguousarray(off, np.int64)
     lens = np.ascontiguousarray(lens, np.int64)
-    out = np.empty((rows, width), np.uint8)
+    if out is None:
+        out = np.empty((rows, width), np.uint8)
+    elif (out.shape != (rows, width) or out.dtype != np.uint8
+          or not out.flags.c_contiguous or not out.flags.writeable):
+        raise ValueError(f"out must be a writable C-contiguous ({rows}, "
+                         f"{width}) uint8 array")
     n = len(off)
     if n < rows:  # padding rows beyond the real batch
         out[n:] = pad

@@ -7,10 +7,12 @@ where kernel="auto" picks it for a scores-only bucket), BSW on the banded
 fill; host, device or Hirschberg traceback; records or
 blocks output.  The pipeline keeps the reference's end-state V19 flow (SURVEY.md section 3.3):
 a sliding window of at most max_inflight buckets is enqueued on the current
-CUDA stream, each followed by async D2H copies into pinned host buffers
-and a CUDA event; the host waits only on the oldest bucket's event and
-finishes it while later buckets still run -- the V19 "print batch N-1
-while kernel N runs" overlap (V19.cu:536-585).
+CUDA stream, each gathered into pinned host memory just before its
+dispatch (while the buckets ahead of it fill), uploaded in one DMA and
+followed by async D2H copies into pinned host buffers and a CUDA event;
+the host waits only on the oldest bucket's event and finishes it while
+later buckets still run -- the V19 "print batch N-1 while kernel N runs"
+overlap (V19.cu:536-585).
 
 traceback="host" copies the fill's direction words to the host and walks
 them with the threaded native walker.  traceback="device" (the V8 move)
@@ -47,7 +49,13 @@ import torch
 
 from tpu_align_torch.core.params import Algorithm, AlignmentParams
 from tpu_align_torch.core.result import AlignmentResult, results_from_arrays
-from tpu_align_torch.io.bucketing import Bucket, BucketSpec, bucketize
+from tpu_align_torch.io.bucketing import (
+    Bucket,
+    BucketPlan,
+    BucketSpec,
+    gather_bucket,
+    plan_buckets,
+)
 from tpu_align_torch.io.dataset import PairDataset
 from tpu_align_torch.oracle.api import align_pair
 from tpu_align_torch.oracle.traceback import traceback_pair
@@ -223,7 +231,7 @@ class AlignmentEngine:
     walks) enqueued ahead of the consumer
     (the reference's STREAM_BATCH_SIZE, cuda/LNW/LinearNeedlemanWunschV13.cu
     :10): device and pinned host memory hold at most that many buckets'
-    direction tensors.  0 / None = unbounded.
+    tokens and direction tensors.  0 / None = unbounded.
 
     output="blocks" skips per-pair AlignmentResult objects: walker arrays
     feed the native block formatter and EngineResult carries one
@@ -334,7 +342,7 @@ class AlignmentEngine:
         queued behind them, "dispatch.enqueue"."""
         outs = sharding.fill_sharded(
             self.mesh, self.algorithm, self.params,
-            b.ref_tokens, b.qry_tokens, b.ref_len, b.qry_len,
+            *b.upload_tokens, b.ref_len, b.qry_len,
             with_traceback=self.with_traceback, kernel=self.kernel,
             stripe_s=self.stripe_s, timer=timer)
         with timer.phase("dispatch.enqueue"):
@@ -402,7 +410,8 @@ class AlignmentEngine:
             return
         seen: set[tuple] = set()
         timer = PhaseTimer()
-        for b in self._buckets_of(ds, timer):
+        for plan in self._plans_of(ds):
+            b = self._gather(ds, plan)
             shape = (b.ref_tokens.shape, b.qry_tokens.shape,
                      *sharding.shard_kernels(
                          self.mesh, self.algorithm, self.with_traceback,
@@ -420,17 +429,25 @@ class AlignmentEngine:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-    def _buckets_of(self, ds: PairDataset,
-                    timer: PhaseTimer | None = None) -> list[Bucket]:
-        """Bucketize the kernel-eligible pairs with dataset-level ids
-        (io/bucketing.py's spans in `timer`)."""
+    def _plans_of(self, ds: PairDataset,
+                  timer: PhaseTimer | None = None) -> list[BucketPlan]:
+        """The buckets of the kernel-eligible pairs as planned, their
+        indices dataset ids (io/bucketing.py plan_buckets, its
+        "memmgmt.group" span in `timer`)."""
         main_idx = np.flatnonzero((ds.ref_len > 0) & (ds.qry_len > 0))
-        buckets = bucketize(ds.select(main_idx), self.bucket_spec, timer)
-        # bucket pair_ids index into the selection; remap to dataset ids
-        for b in buckets:
-            real = b.pair_ids >= 0
-            b.pair_ids[real] = main_idx[b.pair_ids[real]]
-        return buckets
+        return [p._replace(idx=main_idx[p.idx]) for p in
+                plan_buckets(ds.select(main_idx), self.bucket_spec, timer)]
+
+    def _gather(self, ds: PairDataset, plan: BucketPlan) -> Bucket:
+        """A plan's bucket; a CUDA engine's tokens in pinned host memory,
+        so their upload is one DMA with no staging copy."""
+        return gather_bucket(ds, plan, self.bucket_spec,
+                             pinned=self.device.type == "cuda")
+
+    def _buckets_of(self, ds: PairDataset) -> list[Bucket]:
+        """Every bucket of the kernel-eligible pairs, gathered, with
+        dataset-level pair ids."""
+        return [self._gather(ds, plan) for plan in self._plans_of(ds)]
 
     def _bucket_key(self, b: Bucket) -> str:
         """Content hash identifying one bucket's work for checkpointing."""
@@ -569,60 +586,42 @@ class AlignmentEngine:
         # they fall back to the oracle
         empty_idx = np.flatnonzero((ds.ref_len == 0) | (ds.qry_len == 0))
         with timer.phase("memmgmt"):
-            buckets = self._buckets_of(ds, timer)
+            plans = self._plans_of(ds, timer)
 
         results: list[AlignmentResult] = []
-        pending: list[tuple[int, Bucket]] = []  # (bucket id, bucket)
-        for k, b in enumerate(buckets):
-            if not checkpoint_dir:
-                pending.append((k, b))
-                continue
-            base = os.path.join(checkpoint_dir, self._bucket_key(b))
-            if collector is not None:
-                part = self._load_blocks_checkpoint(base + ".npz")
-                if part is not None:
-                    collector.add_chunk(*part)
-                else:
-                    pending.append((k, b))
-                continue
-            restored = self._load_checkpoint(base + ".json")
-            if restored is not None:
-                results.extend(restored)
-            else:
-                pending.append((k, b))
-
         # Sliding-window dispatch (the V13 STREAM_BATCH_SIZE bound): at
         # most max_inflight buckets outstanding; the consumer waits on the
-        # oldest while the rest still run (the V19 overlap).
-        limit = self.max_inflight or len(pending)
+        # oldest while the rest still run (the V19 overlap).  A bucket is
+        # gathered just before its dispatch, while the buckets ahead of it
+        # fill, and its host arrays live until it is finished.
+        limit = self.max_inflight or len(plans)
         inflight: collections.deque = collections.deque()
         next_up = 0
 
         def _top_up():
             nonlocal next_up
-            while next_up < len(pending) and len(inflight) < limit:
-                k, b = pending[next_up]
-                with timer.on_bucket(k), timer.phase("dispatch"):
-                    inflight.append((k, b, self._dispatch(b, timer)))
+            while next_up < len(plans) and len(inflight) < limit:
+                k = next_up
                 next_up += 1
+                with timer.on_bucket(k):
+                    with timer.phase("memmgmt"), \
+                            timer.phase("memmgmt.gather"):
+                        b = self._gather(ds, plans[k])
+                    base = None
+                    if checkpoint_dir:
+                        base = os.path.join(checkpoint_dir,
+                                            self._bucket_key(b))
+                        if self._restore(base, results, collector):
+                            continue
+                    with timer.phase("dispatch"):
+                        inflight.append((k, b, base,
+                                         self._dispatch(b, timer)))
 
         _top_up()
         while inflight:
-            k, b, job = inflight.popleft()
-            with timer.on_bucket(k):
-                bucket_results = self._finish_bucket(b, job, timer,
-                                                     collector)
-                if collector is None:
-                    results.extend(bucket_results)
-                if checkpoint_dir:
-                    base = os.path.join(checkpoint_dir, self._bucket_key(b))
-                    with timer.phase("printing"):
-                        if collector is not None:
-                            self._save_blocks_checkpoint(
-                                base + ".npz", collector.parts[-1])
-                        else:
-                            self._save_checkpoint(base + ".json",
-                                                  bucket_results)
+            # no name here holds the finished bucket, so its pinned
+            # tokens are free again before the next gather
+            self._retire(*inflight.popleft(), timer, collector, results)
             _top_up()  # refill the dispatch window
         with timer.phase("backtrack"):
             oracle = [self._oracle_fallback(ds, int(i)) for i in empty_idx]
@@ -636,6 +635,37 @@ class AlignmentEngine:
             results.extend(oracle)
             results.sort(key=lambda r: r.pair_num)
         return EngineResult(results, timer, ds.num_cells)
+
+    def _restore(self, base: str, results: list, collector) -> bool:
+        """Take a bucket's output from its checkpoint at `base` (no
+        suffix), into `collector` or `results`; False where there is
+        none."""
+        if collector is not None:
+            part = self._load_blocks_checkpoint(base + ".npz")
+            if part is not None:
+                collector.add_chunk(*part)
+            return part is not None
+        restored = self._load_checkpoint(base + ".json")
+        if restored is not None:
+            results.extend(restored)
+        return restored is not None
+
+    def _retire(self, k: int, b: Bucket, base: str | None, job,
+                timer: PhaseTimer, collector, results: list) -> None:
+        """Finish dispatched bucket k, into `collector` or `results`, and
+        checkpoint its output at `base` (no suffix) where one is given."""
+        with timer.on_bucket(k):
+            bucket_results = self._finish_bucket(b, job, timer, collector)
+            if collector is None:
+                results.extend(bucket_results)
+            if base is None:
+                return
+            with timer.phase("printing"):
+                if collector is not None:
+                    self._save_blocks_checkpoint(base + ".npz",
+                                                 collector.parts[-1])
+                else:
+                    self._save_checkpoint(base + ".json", bucket_results)
 
     def _finish_bucket(self, b: Bucket, job, timer: PhaseTimer, collector):
         """Wait for one dispatched bucket and take it through its
