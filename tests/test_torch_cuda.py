@@ -5,7 +5,9 @@ main-path bucket; bands 14,528-20,000, whose slots pass one warp's shared
 memory, on long pairs, and through the CLI), the row-sweep fill, a band
 wavefront in every mode
 (all four aligners, dirs and scores: the wavefront's seams with planted
-ties, wide references, repeated launches; its last rows: row seams,
+ties, wide references, repeated launches; LNW's scores step in the
+gap-offset form at its seams, on a launch of 256-row bands, at the widest
+gap it admits and under weights it does not; its last rows: row seams,
 widths, 1-128 problems, the split-level shape, repeated launches), the
 walk over both layouts (seam, long-run and main-path buckets; the moves
 mode and the Python replay against the events path; the banded walk at
@@ -51,7 +53,12 @@ from tpu_align_torch.kernels import fill as rs
 from tpu_align_torch.kernels import stagger as ts
 from tpu_align_torch.ops import dpx
 from tpu_align_torch.oracle.api import align_pair
-from tpu_align_torch.runtime.profiler import launch_counts, reset_launch_counts
+from tpu_align_torch.runtime.profiler import (
+    count_fill,
+    full_band_cells,
+    launch_counts,
+    reset_launch_counts,
+)
 from tpu_align_torch.scripts import exp_s16x2
 from tpu_align_torch.traceback import device as td
 from tpu_align_torch.traceback import hirschberg as th
@@ -716,6 +723,149 @@ def test_rowscan_wide_bands_only_where_built(cuda_device, monkeypatch):
                                          with_traceback=False)
         torch.cuda.synchronize()
         _assert_same_rowscan(algo, got, want, t[2], t[3], b.num_real)
+
+
+def _offset_pairs(case: str, rng) -> list[tuple[bytes, bytes]]:
+    """Pairs that put LNW's gap-offset scores step (fill_band_scores) at
+    one of its seams, a query a copy of its reference with 2 % of it
+    substituted (so the diagonal wins and H' climbs), each length as named:
+    (reference, query) bytes."""
+    def pair(rlen: int, qlen: int) -> tuple[bytes, bytes]:
+        ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), rlen)
+        qry = rng.choice(np.frombuffer(b"ACGT", np.uint8), qlen)
+        n = min(rlen, qlen)
+        qry[:n] = np.where(rng.random(n) < 0.02, qry[:n], ref[:n])
+        return ref, qry
+
+    def n_at(seq, at: int):
+        seq[at] = ord("N")
+
+    out = []
+    if case == "partial-bottom":  # 2 or 4 full bands, then 88 or 1 rows
+        out = [pair(500, 600), pair(700, 513), pair(64, 257)]
+    elif case == "n-in-middle":  # offset bands above and below a general one
+        for rlen, qlen, at in ((700, 768, 300), (400, 1024, 520)):
+            ref, qry = pair(rlen, qlen)
+            n_at(qry, at)
+            out.append((ref, qry))
+        ref, qry = pair(600, 768)  # an N in the reference: the mismatch word
+        n_at(ref, 77)
+        n_at(ref, 599)
+        out.append((ref, qry))
+    elif case == "short-refs":  # ramps alone, and no column at all
+        out = [pair(r, q) for r in (0, 1, 17, 31) for q in (256, 512, 700)]
+    elif case == "exact-bands":  # qlen a multiple of either band
+        out = [pair(r, q) for r, q in ((300, 256), (300, 512), (512, 768),
+                                       (33, 1024))]
+    return [(r.tobytes(), q.tobytes()) for r, q in out]
+
+
+def _offset_tensors(pairs, device):
+    """pairs as one bucket on device, padded to whole 256-row bands."""
+    qm = 256 * -(-max(len(q) for _, q in pairs) // 256)
+    rm = 128 * -(-max(max(len(r) for r, _ in pairs), 1) // 128)
+    (b,) = bucketize(PairDataset.from_pairs(pairs),
+                     BucketSpec(batch_pairs=len(pairs), query_multiple=qm,
+                                ref_multiple=rm))
+    t = list(bucket_to_tensors(b, device))
+    # bucketize pads an empty reference; give it no column again
+    t[2][:b.num_real] = torch.tensor([len(r) for r, _ in pairs],
+                                     dtype=torch.int32)
+    return b, t
+
+
+def _lnw_scores_against_plain(params, b, t, offset: bool):
+    """One LNW scores launch of bucket b against the plain version, score
+    for score; the launch took the gap-offset form where `offset`, and the
+    counters hold its full bands' cells."""
+    reset_launch_counts()
+    before = rs.launches
+    got = rs.fill_bucket_async(Algorithm.LNW, params, *t,
+                               with_traceback=False)
+    assert rs.launches == before + 1
+    assert rs.launch_scores_step == rs.launch_offset_form == offset
+    want = rs.fill_rowscan_reference(Algorithm.LNW, params, *t,
+                                     with_traceback=False)
+    torch.cuda.synchronize()
+    _assert_same_rowscan(Algorithm.LNW, got, want, t[2], t[3], b.num_real)
+    rlen = t[2][:b.num_real].cpu().numpy()
+    qlen = t[3][:b.num_real].cpu().numpy()
+    count_fill("rowscan", rlen, qlen)
+    assert launch_counts()["fill_band_offset_cells"] == (
+        full_band_cells(rlen, qlen, rs.launch_band_rows) if offset else 0)
+
+
+@pytest.mark.parametrize("lane_rows", [4, 8])
+@pytest.mark.parametrize("case", ["partial-bottom", "n-in-middle",
+                                  "short-refs", "exact-bands"])
+def test_lnw_offset_form_on_its_seams(cuda_device, monkeypatch, case,
+                                      lane_rows):
+    """LNW's scores step in the gap-offset form at each rows-a-lane, with
+    the general step beside it on the boundary rows it converts back to H:
+    a partial bottom band, an N in a middle band of the query and in the
+    reference, references of 0-31 columns, queries a whole number of
+    bands; under 3/-1/-2 and under 3/-150/-20, whose mismatch fits the
+    profile's byte only shifted (before the offset form every band took
+    the general step)."""
+    monkeypatch.setattr(rs, "WIDE_BANDS_A_WARP",
+                        0 if 32 * lane_rows == rs.WIDE_BAND_ROWS else 10**9)
+    b, t = _offset_tensors(_offset_pairs(case, np.random.default_rng(61)),
+                           cuda_device)
+    for params in (AlignmentParams(), AlignmentParams(mismatch=-150,
+                                                      gap=-20)):
+        _lnw_scores_against_plain(params, b, t, offset=True)
+        assert rs.launch_band_rows == 32 * lane_rows
+
+
+def test_lnw_offset_form_on_a_wide_launch(cuda_device):
+    """A launch of enough 4 kbp pairs that band_rows takes 256-row bands
+    on its own (WIDE_BANDS_A_WARP such bands a resident warp), as the
+    benchmark's buckets do: the offset form against the plain version."""
+    warps = rs._resident_warps(cuda_device, Algorithm.LNW, 0,
+                               rs.WIDE_BAND_ROWS)
+    bands = -(-4096 // rs.WIDE_BAND_ROWS)
+    count = -(-rs.WIDE_BANDS_A_WARP * warps // bands)
+    ds = synthetic_dataset(count, uniform_len=4000, seed=62, sub_rate=0.01,
+                           indel_rate=0.005)
+    (b,) = bucketize(ds, BucketSpec(batch_pairs=count, query_multiple=4096,
+                                    ref_multiple=4096))
+    t = bucket_to_tensors(b, cuda_device)
+    _lnw_scores_against_plain(AlignmentParams(), b, t, offset=True)
+    assert rs.launch_band_rows == rs.WIDE_BAND_ROWS
+
+
+@pytest.mark.parametrize("gap,offset", [(-62, True), (-63, False)])
+def test_lnw_offset_form_at_the_widest_gap(cuda_device, gap, offset):
+    """16 kbp pairs under 3/-1 and the widest gap whose shifted weights
+    fit a byte (-62: 127 and 123) take the offset form; one more (-63:
+    129) takes the general step for every band."""
+    ds = synthetic_dataset(2, uniform_len=16_384, seed=63, sub_rate=0.004,
+                           indel_rate=0.003)
+    (b,) = bucketize(ds, BucketSpec(batch_pairs=2, query_multiple=16_640,
+                                    ref_multiple=16_640))
+    t = bucket_to_tensors(b, cuda_device)
+    _lnw_scores_against_plain(AlignmentParams(gap=gap), b, t, offset)
+
+
+@pytest.mark.parametrize("weights", [dict(match=120, gap=-10),
+                                     dict(match=3, mismatch=-1, gap=-70)],
+                         ids=["match-120", "gap-70"])
+def test_lnw_without_the_offset_form(cuda_device, weights):
+    """Weights whose shifted bytes do not fit (120 + 20, 3 + 140): every
+    LNW band takes the general step, scores equal the plain version's,
+    and ANW's scores step still runs (its profile unshifted)."""
+    pairs = (_offset_pairs("partial-bottom", np.random.default_rng(64))
+             + _offset_pairs("n-in-middle", np.random.default_rng(65)))
+    b, t = _offset_tensors(pairs, cuda_device)
+    params = AlignmentParams(**weights)
+    _lnw_scores_against_plain(params, b, t, offset=False)
+    got = rs.fill_bucket_async(Algorithm.ANW, params, *t,
+                               with_traceback=False)
+    assert rs.launch_scores_step and not rs.launch_offset_form
+    want = rs.fill_rowscan_reference(Algorithm.ANW, params, *t,
+                                     with_traceback=False)
+    torch.cuda.synchronize()
+    _assert_same_rowscan(Algorithm.ANW, got, want, t[2], t[3], b.num_real)
 
 
 @pytest.mark.parametrize("algo,with_traceback", [(Algorithm.LSW, False),

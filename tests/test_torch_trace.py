@@ -286,6 +286,76 @@ def test_fill_band_steady_cells_share_of_a_long_bucket():
     assert 0.99 < share < 1
 
 
+@pytest.mark.parametrize("band_rows", [128, 256])
+@pytest.mark.parametrize("rlen,qlen", [
+    (0, 0), (5, 0), (0, 512), (31, 100),  # no full band, or no column
+    (64, 127), (64, 255), (64, 256),      # at a band's edge
+    (31, 128), (65, 300), (1000, 513),    # full bands and a partial one
+    (16384, 16384), (16415, 16347),       # the benchmark's pairs
+])
+def test_fill_band_offset_cells_from_lengths(rlen, qlen, band_rows):
+    """fill_band_offset_cells: the cells of each full band (rlen x
+    band_rows, qlen // band_rows of them), counted by hand, through
+    count_fill of an LNW scores launch in the gap-offset form; an ANW
+    scores launch (the scores step, not the form) adds none, though it
+    adds steady cells."""
+    from tpu_align_torch.kernels import fill
+
+    want = rlen * band_rows * (qlen // band_rows)
+    assert profiler.full_band_cells([rlen], [qlen], band_rows) == want
+    assert want <= rlen * qlen
+    profiler.reset_launch_counts()
+    old = (fill.launch_band_rows, fill.launch_scores_step,
+           fill.launch_offset_form, fill.band_warps)
+    try:
+        fill.launch_band_rows, fill.band_warps = band_rows, 4
+        fill.launch_scores_step = fill.launch_offset_form = True
+        profiler.count_fill("rowscan", [rlen, 0, 7], [qlen, 9, 0])
+        assert profiler.launch_counts()["fill_band_offset_cells"] == want
+        fill.launch_offset_form = False  # as an ANW launch leaves it
+        profiler.count_fill("rowscan", [rlen], [qlen])
+        counts = profiler.launch_counts()
+        assert counts["fill_band_offset_cells"] == want
+        assert counts["fill_band_steady_cells"] == 2 * profiler.steady_cells(
+            [rlen], [qlen], band_rows)
+    finally:
+        (fill.launch_band_rows, fill.launch_scores_step,
+         fill.launch_offset_form, fill.band_warps) = old
+        profiler.reset_launch_counts()
+    assert profiler.launch_counts()["fill_band_offset_cells"] == 0
+
+
+@pytest.mark.parametrize("algo,weights,m,n,fits", [
+    # LNW: match and mismatch less 2 x gap in a signed byte
+    (Algorithm.LNW, {}, 16384, 16384, True),                 # 7, 3
+    (Algorithm.LNW, dict(match=120, gap=-10), 512, 512, False),  # 140
+    (Algorithm.LNW, dict(mismatch=-150, gap=-20), 512, 512, True),  # -110
+    (Algorithm.LNW, dict(mismatch=-133), 512, 512, False),    # -129
+    (Algorithm.LNW, dict(gap=-62), 16384, 16384, True),       # 127, 123
+    (Algorithm.LNW, dict(gap=-63), 16384, 16384, False),      # 129
+    (Algorithm.LNW, dict(match=200, mismatch=100, gap=50), 64, 64, True),
+    # and (m + n) x (the larger shifted weight's size + |gap|) in int32
+    (Algorithm.LNW, dict(gap=-62), 5_681_173, 5_681_174, True),
+    (Algorithm.LNW, dict(gap=-62), 5_681_174, 5_681_174, False),
+    # every other aligner: match and mismatch as they are, at any size
+    (Algorithm.ANW, dict(match=120, gap=-10), 512, 512, True),
+    (Algorithm.ANW, dict(mismatch=-150), 512, 512, False),
+    (Algorithm.ANW, dict(match=128), 512, 512, False),
+    (Algorithm.LSW, dict(match=120, gap=-10), 2**30, 2**30, True),
+    (Algorithm.LSW, dict(mismatch=-129), 512, 512, False),
+    (Algorithm.BSW, dict(match=127, mismatch=-128, gap=-100), 512, 512,
+     True),
+], ids=lambda v: getattr(v, "value", None))
+def test_profile_fits_by_aligner(algo, weights, m, n, fits):
+    """profile_fits, the host's copy of the kernel's choice: LNW's scores
+    step runs in the gap-offset form, so its weights are shifted by 2 x
+    gap and its int32 guard reads the bucket's size; ANW, LSW and BSW test
+    their weights unshifted, as before the form."""
+    from tpu_align_torch.kernels import fill
+
+    assert fill.profile_fits(algo, AlignmentParams(**weights), m, n) is fits
+
+
 @pytest.mark.parametrize("lane_rows", [4, 8])
 @pytest.mark.parametrize("m", [1, 127, 128, 129, 255, 256, 257, 16415])
 def test_band_size_bookkeeping_agrees(m, lane_rows):

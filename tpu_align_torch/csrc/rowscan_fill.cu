@@ -131,6 +131,31 @@
 //     (H, F), go through a per-warp shared-memory stage, two chunks deep,
 //     written one chunk ahead: a lane reads its column's selector and lane
 //     0 its incoming H where the general step shuffles and selects.
+//   - LNW's scores step runs in the gap-offset form: lanes hold H'[i][j] =
+//     H[i][j] - gap*(i + j), for which H' = max(H'[i-1][j-1] + w - 2*gap,
+//     H'[i-1][j], H'[i][j-1]) with borders H'[i][0] = H'[0][j] = 0, the
+//     same integers once shifted back.  Both gap terms are free, so a cell
+//     is a prmt of the profile (its bytes match - 2*gap and mismatch -
+//     2*gap, the mismatch word likewise), the add of the diagonal (an
+//     IMAD, off the integer ALU) and one 3-way max with the left
+//     neighbour and the row above: 3 operations where the plain recurrence
+//     takes 4, the row-to-row chain still one.  (A max of the row above
+//     with an add-max of the diagonal and the left neighbour issues 3 too,
+//     but ran at the 4-operation step's speed on the H100: PERF.md.)  The
+//     form is converted only at the band's edges: the incoming row to H' as
+//     it is staged, a chunk at a time, and the writer's row back to H as it
+//     is stored, so the boundary buffer holds H whichever step wrote it or
+//     reads it (a partial bottom band, or one holding a code other than A,
+//     C, G and T, takes the general step on the same buffer); one running
+//     gap*(i + j) of the writer's cell, an add a step, gives both, so the
+//     sweep keeps no row index live.  The bottom band's score is H' +
+//     gap*(qlen + rlen).  LNW's profile fits only where the shifted weights
+//     fit a signed byte and (M + N) x (their larger magnitude + |gap|) fits
+//     int32, which bounds H', gap*(i + j) and their sum (kernels/fill.py
+//     profile_fits makes the same choice); elsewhere every LNW band takes
+//     the general step.  LSW's and BSW's floor at 0 does not survive the
+//     shift, and ANW's would issue fewer operations than
+//     benchmarks/roofline.py counts for it.
 // A band costs rlen + 31 steps; band k+1 trails band k by at least 70
 // steps (30 for the lanes' skew, 40 for the chunk it loads ahead) and the
 // hand-off's latency.  What bounds a step depends on the launch.  A lone
@@ -145,7 +170,8 @@
 // which issues little besides the cell's arithmetic, took 549 LNW pairs
 // of 16 kbp from 118 ms to 47 at 4 rows a lane and 40 at 8 (ANW: 188 ->
 // 77 / 65), the wider band sharing its step's few instructions among
-// more rows (PERF.md section 6).  So the host asks for 8 rows a lane only
+// more rows, and the gap-offset form from 41.6 to 36.6 at 8 (PERF.md
+// section 6).  So the host asks for 8 rows a lane only
 // on a launch that fills the card many times over (kernels/fill.py
 // band_rows).
 //
@@ -196,6 +222,20 @@ __host__ __device__ constexpr int scores_group(int algo, int rows) {
 
 int bands_of(int M, int band_rows) {
   return std::max(1, (M + band_rows - 1) / band_rows);
+}
+
+// Whether the scores step's profile holds the weights in signed bytes:
+// LNW's in the gap-offset form (match and mismatch less 2*gap), and only
+// where (M + N) x (their larger magnitude + |gap|) fits int32 (see the
+// header); kernels/fill.py profile_fits is the same test.
+bool profile_fits(int algo, int match, int mismatch, int gap, int M, int N) {
+  const long long shift = algo == kLNW ? 2LL * gap : 0LL;
+  const long long w1 = match - shift, w2 = mismatch - shift;
+  if (w1 < -128 || w1 > 127 || w2 < -128 || w2 > 127) return false;
+  if (algo != kLNW) return true;
+  const long long size = std::max(std::max(w1, -w1), std::max(w2, -w2)) +
+                         std::max<long long>(gap, -static_cast<long long>(gap));
+  return (static_cast<long long>(M) + N) * size <= INT32_MAX;
 }
 
 __device__ __forceinline__ int ld_acquire(const int32_t* p) {
@@ -270,7 +310,7 @@ struct Args {
   const int32_t* open_top;  // (B,) or null (ANW)
   int B, N, M, match, mismatch, gap, gap_open, gap_extend, band;
   int bands;                // bands a problem, ceil(M / band rows)
-  bool packed;              // match and mismatch fit a signed byte
+  bool packed;              // the scores step's profile fits (profile_fits)
   unsigned* ticket;         // the next (band, problem) item
   int32_t* ready;           // (bands, B): columns of a band's row published
   int32_t* hbuf;            // (B, 2, N): a band's bottom row H, 2 slots
@@ -678,6 +718,7 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
   constexpr bool kLocal = kAlgo == kLSW || kAlgo == kBSW;
   constexpr bool kBanded = kAlgo == kBSW;
   constexpr bool kAffine = kAlgo == kANW;
+  constexpr bool kOffset = kAlgo == kLNW;  // H' = H - gap*(i + j): the header
   constexpr int kBand = 32 * kRows;
   constexpr int kGroup = scores_group(kAlgo, kRows);
   const int N = a.N;
@@ -704,11 +745,17 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
   int32_t* out_ready = a.ready + static_cast<size_t>(k) * a.B + b;
   const uint8_t* rp = a.ref + static_cast<size_t>(b) * N;
   const int i1 = i0 + kRows * lane + 1;  // this lane's first row
-  // the profile: byte c of prof[q] scores base code c against row i1 + q
-  const uint32_t mis = (static_cast<uint32_t>(a.mismatch) & 0xffu) *
+  // the profile: byte c of prof[q] scores base code c against row i1 + q,
+  // less 2*gap in the offset form
+  const int shift = kOffset ? 2 * gap : 0;
+  const uint32_t mis = (static_cast<uint32_t>(a.mismatch - shift) & 0xffu) *
                        0x01010101u;
   const uint32_t flip =
-      static_cast<uint32_t>(a.match ^ a.mismatch) & 0xffu;
+      static_cast<uint32_t>((a.match - shift) ^ (a.mismatch - shift)) & 0xffu;
+  // H[i][0] (H'[i][0] = 0 in the offset form)
+  auto border = [&](int i) {
+    return kOffset ? 0 : col_border<kAlgo>(a, tb, i);
+  };
   const uint8_t* qp = a.qry + static_cast<size_t>(b) * a.M + i1 - 1;
   // h: the stored H[i][j] of the previous step (left); BSW's hl: the
   // unmasked one its row recurrence reads
@@ -717,7 +764,7 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
     prof[q] = mis ^ (flip << (8 * ((qp[q] >> 1) & 3)));
-    h[q] = hl[q] = col_border<kAlgo>(a, tb, i1 + q);
+    h[q] = hl[q] = border(i1 + q);
     f[q] = e[q] = kNeg;
     bestv[q] = bestj[q] = 0;
   }
@@ -732,8 +779,11 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
   auto wait_for = [&](int cols) {
     if (!top) wait_ready(in_ready, kLocal && rl == 0 ? 1 : min(cols, rl));
   };
-  auto load_h = [&](int j) {
+  // the incoming row H[i0][j]; H'[i0][j] in the offset form, where conv
+  // is gap*(i0 + j)
+  auto load_h = [&](int j, int conv) {
     if (j > rl) return 0;
+    if (kOffset) return top ? 0 : __ldcg(in_h + j - 1) - conv;
     return top ? row_border<kAlgo>(a, j) : __ldcg(in_h + j - 1);
   };
   auto load_f = [&](int j) {
@@ -747,9 +797,14 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
   uint32_t cur_sel = load_sel(lane);  // the codes of the newest chunk staged
   win[lane] = code_sel(0);
   win[32 + lane] = cur_sel;
-  stage_h[lane] = load_h(1 + lane);
+  stage_h[lane] = load_h(1 + lane, gap * (i0 + 1 + lane));
   if (kAffine) stage_f[lane] = load_f(1 + lane);
-  // stage the chunk after chunk t0 in the other half
+  // The offset form's gap*(i0 + kBand + t - 30) at step t: the writer's
+  // row and column, one add a step, the incoming row's conversion derived
+  // from it when it is staged (so the sweep keeps no row index live).
+  // Step -1 to begin with.
+  int conv = gap * (i0 + kBand - 31);
+  // stage the chunk after chunk t0 in the other half, at step t0 + kAhead
   auto stage_next = [&](int t0) {
     const int half = ((t0 >> 5) + 1) & 1;
     win[half * 64 + lane] = cur_sel;
@@ -758,11 +813,13 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
       wait_for(base + 32);
       cur_sel = load_sel(base + lane);
       win[half * 64 + 32 + lane] = cur_sel;
-      stage_h[half * 32 + lane] = load_h(base + 1 + lane);
+      // gap*(i0 + base + 1 + lane), from the step's conv
+      stage_h[half * 32 + lane] = load_h(
+          base + 1 + lane, conv + gap * (63 - kAhead - kBand + lane));
       if (kAffine) stage_f[half * 32 + lane] = load_f(base + 1 + lane);
     }
   };
-  int diag = col_border<kAlgo>(a, tb, i0);  // lane 0's H[i1-1][j-1] at j = 1
+  int diag = border(i0);  // lane 0's H[i1-1][j-1] at j = 1
   const int steps = rl + 31;
   const bool writes = !bottom && lane == 31;  // the band's row goes down
   // Chunk t0's 32 steps, kGroup at a time.  kIn: some lane may be at
@@ -782,6 +839,7 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
         const int s = g + u;
         const int t = t0 + s;
         if (kOut && t >= steps) return;
+        if (kOffset) conv += gap;
         if (u == kAhead % kGroup && g == kAhead - kAhead % kGroup) {
           stage_next(t0);
         }
@@ -822,10 +880,10 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
                       : __vimax_s32_relu(left + gap, 0);
             if (kBanded) hl[q] = before ? 0 : val;
             if (kBanded && !in_band) val = 0;
-          } else {
-            val = __viaddmax_s32(up, gap, __viaddmax_s32(left, gap, mm));
+          } else {  // the offset form: mm's add on the FMA pipe, one max3
+            val = __vimax3_s32(up, left, mm);
           }
-          h[q] = before ? col_border<kAlgo>(a, tb, i1 + q) : val;
+          h[q] = before ? border(i1 + q) : val;
           up = h[q];  // the next row's up
           if (kLocal) {
             if (kIn || kOut) {
@@ -842,8 +900,8 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
         }
         // the last lane's column t - 30 goes down; a local band's last
         // release follows its best
-        if (writes && (!kIn || t >= 31)) {
-          out_h[t - 31] = h[kRows - 1];
+        if (writes && (!kIn || t >= 31)) {  // row i0 + kBand in H
+          out_h[t - 31] = kOffset ? h[kRows - 1] + conv : h[kRows - 1];
           if (kAffine) out_f[t - 31] = f[kRows - 1];
         }
         const int jw = t - 30;
@@ -870,7 +928,7 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
     finish_local<kRows>(a, b, k, lane, 31, top, bottom, rl, ql, i1, bestv,
                         bestj, in_ready, out_ready);
   } else if (bottom && lane == 31) {  // H[qlen][rlen], or H[qlen][0]
-    a.score[b] = h[kRows - 1];
+    a.score[b] = kOffset ? h[kRows - 1] + gap * (ql + rl) : h[kRows - 1];
     a.srow[b] = ql_in;
     a.scol[b] = rl_in;
   }
@@ -1048,8 +1106,7 @@ extern "C" int ta_torch_rowscan_fill(
   int32_t* hbuf = w + kHead + static_cast<size_t>(bands) * B;
   int32_t* fbuf = hbuf + static_cast<size_t>(2) * B * N;
   int32_t* bests = fbuf + (algo == kANW ? static_cast<size_t>(2) * B * N : 0);
-  const bool packed = match >= -128 && match <= 127 && mismatch >= -128 &&
-                      mismatch <= 127;
+  const bool packed = profile_fits(algo, match, mismatch, gap, M, N);
   const Args a{static_cast<const uint8_t*>(ref),
                static_cast<const uint8_t*>(qry),
                static_cast<const int32_t*>(ref_len),

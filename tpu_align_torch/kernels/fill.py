@@ -30,9 +30,9 @@ grid x warps a block, which the entry point sizes from the occupancy the
 instantiation's registers allow, and hands back through a host int).
 The kernel is a band wavefront, a warp a band of `band_rows` query rows:
 the launch's band size, chosen here and passed to the entry point, which
-refuses one it was not built for; `launch_band_rows` and
-`launch_scores_step` keep the last launch's, for the counters
-(runtime/profiler.py count_fill).
+refuses one it was not built for; `launch_band_rows`,
+`launch_scores_step` and `launch_offset_form` keep the last launch's, for
+the counters (runtime/profiler.py count_fill).
 Unlike the JAX wrapper, B is not padded to 128 lanes, so callers compare
 real rows.
 """
@@ -65,8 +65,10 @@ launches = 0  # fill kernel launches (dirs or scores-only)
 last_rows_launches = 0  # last-row kernel launches
 band_warps = 0  # persistent warps of the last launch, either mode
 launch_band_rows = 128  # query rows a band of the last launch
-# whether the last launch's full bands could take the scores step
+# whether the last launch's full bands could take the scores step, and
+# whether that step ran in the gap-offset form (LNW's)
 launch_scores_step = False
+launch_offset_form = False
 
 # Query rows a band of the wavefront (32 lanes' rows): BAND_ROWS (4 a
 # lane) in every mode, or WIDE_BAND_ROWS (8 a lane) for a scores-only
@@ -112,10 +114,21 @@ def bands_of(m: int, rows: int) -> int:
     return max(1, -(-m // rows))
 
 
-def profile_fits(params: AlignmentParams) -> bool:
-    """Whether match and mismatch fit the scores step's profile bytes
-    (signed); else every band takes the general step."""
-    return all(-128 <= v <= 127 for v in (params.match, params.mismatch))
+def profile_fits(algorithm: Algorithm, params: AlignmentParams, m: int,
+                 n: int) -> bool:
+    """Whether the scores step's profile holds the weights in signed
+    bytes, as the kernel tests it (csrc/rowscan_fill.cu profile_fits) for
+    a bucket of m padded query rows and n columns; else every band takes
+    the general step.  LNW's step runs in the gap-offset form, H - gap x
+    (i + j): its bytes are match and mismatch less 2 x gap, and it runs
+    only where (m + n) x (their larger magnitude + |gap|) fits int32."""
+    lnw = algorithm is Algorithm.LNW
+    shift = 2 * params.gap if lnw else 0
+    weights = [w - shift for w in (params.match, params.mismatch)]
+    if not all(-128 <= w <= 127 for w in weights):
+        return False
+    size = max(abs(w) for w in weights) + abs(params.gap)
+    return not lnw or (m + n) * size <= 2**31 - 1
 
 
 def rows_per_word(algo: Algorithm) -> int:
@@ -371,7 +384,8 @@ def last_rows_reference(
 
 def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
                    qry_len, open_top=None):
-    global band_warps, launch_band_rows, launch_scores_step
+    global band_warps, launch_band_rows, launch_scores_step, \
+        launch_offset_form
     lib = _build.library()
     dev = ref_tokens.device
     b, n = ref_tokens.shape
@@ -423,7 +437,9 @@ def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
             f"rowscan fill kernel launch failed: CUDA error {rc}")
     band_warps = warps.value
     launch_band_rows = rows
-    launch_scores_step = mode == _MODE_SCORES and profile_fits(params)
+    launch_scores_step = mode == _MODE_SCORES and profile_fits(
+        algorithm, params, m, n)
+    launch_offset_form = launch_scores_step and algorithm is Algorithm.LNW
     return scores, srow, scol, dirs, hlast, flast
 
 

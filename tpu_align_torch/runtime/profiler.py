@@ -15,8 +15,9 @@ goes through PhaseTimer.phase.  A recording timer (record=True; the CLI's
 launch counts of the engine-path kernels (reset_launch_counts,
 launch_counts), which show that a run went through the kernels, what
 each fill launch held (count_fill), and what each launch of the band
-wavefront ran on (count_band: its persistent warps, and the cells its
-scores step took in steady chunks).
+wavefront ran on (count_band: its persistent warps, the cells its
+scores step took in steady chunks, and those its LNW scores step took in
+the gap-offset form).
 """
 
 from __future__ import annotations
@@ -159,7 +160,8 @@ _fill = dict.fromkeys(FILL_KEYS, 0)
 # what the band wavefront's launches (B2, every mode) ran on; count_band
 # adds to it
 BAND_KEYS = ("fill_band_counted", "fill_band_warps_max",
-             "fill_band_warp_cells", "fill_band_steady_cells")
+             "fill_band_warp_cells", "fill_band_steady_cells",
+             "fill_band_offset_cells")
 _band = dict.fromkeys(BAND_KEYS, 0)
 # columns of a chunk of the band wavefront's sweep (csrc/rowscan_fill.cu)
 BAND_CHUNK = 32
@@ -193,6 +195,16 @@ def steady_cells(rlen, qlen, band_rows: int) -> int:
     full = np.clip(qlen, 0, None) // band_rows
     chunks = np.clip(rlen // BAND_CHUNK - 1, 0, None)
     return int(np.sum(full * chunks) * BAND_CHUNK * band_rows)
+
+
+def full_band_cells(rlen, qlen, band_rows: int) -> int:
+    """The cells of the full bands of band_rows rows (all but a partial
+    bottom band, qlen // band_rows a pair), rlen columns each: those the
+    scores step takes where every one holds bases alone."""
+    rlen = np.asarray(rlen, np.int64)
+    qlen = np.asarray(qlen, np.int64)
+    full = np.clip(qlen, 0, None) // band_rows
+    return int(np.sum(full * np.clip(rlen, 0, None)) * band_rows)
 
 
 def fill_work(kernel: str, rlen, qlen, band: int | None = None,
@@ -235,22 +247,25 @@ def count_fill(kernel: str, rlen, qlen, band: int | None = None) -> None:
     band size its wrapper launched (kernels/fill.py launch_band_rows), and
     by count_band, with the persistent warps the wrapper read back from
     that launch (band_warps) and, where its full bands could take the
-    scores step (launch_scores_step), its steady cells."""
-    band_rows = steady = None
+    scores step (launch_scores_step), its steady cells and, where that
+    step ran in the gap-offset form (launch_offset_form), its full bands'
+    cells."""
+    band_rows = steady = offset = None
     if kernel == "rowscan":
         from tpu_align_torch.kernels import fill
 
         band_rows = fill.launch_band_rows
         steady = band_rows if fill.launch_scores_step else None
+        offset = band_rows if fill.launch_offset_form else None
     for key, value in fill_work(kernel, rlen, qlen, band,
                                 band_rows).items():
         _fill[key] += value
     if kernel == "rowscan":
-        count_band(fill.band_warps, rlen, qlen, steady)
+        count_band(fill.band_warps, rlen, qlen, steady, offset)
 
 
-def count_band(warps: int, rlen, qlen,
-               steady_rows: int | None = None) -> None:
+def count_band(warps: int, rlen, qlen, steady_rows: int | None = None,
+               offset_rows: int | None = None) -> None:
     """Add one launch of the band wavefront (B2) to the BAND_KEYS
     counters: the launch (1); the most persistent warps any launch ran
     (warps: the launch's grid x warps a block, which the card's occupancy
@@ -258,7 +273,11 @@ def count_band(warps: int, rlen, qlen,
     over its warps, the cells each persistent warp took on average; and,
     for a scores launch whose full bands of steady_rows rows take the
     scores step (None for any other), the cells of their steady chunks
-    (steady_cells).  A launch of no warps adds no cells a warp."""
+    (steady_cells); and, for an LNW scores launch whose full bands of
+    offset_rows rows take the scores step in the gap-offset form (None for
+    any other), their cells (full_band_cells).  Both are shape counts, as
+    the kernel would choose for bands of bases alone.  A launch of no
+    warps adds no cells a warp."""
     cells = int(np.sum(np.asarray(rlen, np.int64)
                        * np.asarray(qlen, np.int64)))
     _band["fill_band_counted"] += 1
@@ -268,6 +287,9 @@ def count_band(warps: int, rlen, qlen,
     if steady_rows is not None:
         _band["fill_band_steady_cells"] += steady_cells(rlen, qlen,
                                                         steady_rows)
+    if offset_rows is not None:
+        _band["fill_band_offset_cells"] += full_band_cells(rlen, qlen,
+                                                           offset_rows)
 
 
 def _counter_modules():
