@@ -26,11 +26,15 @@ that are the uploads' own sources, reused across back-to-back runs);
 the mesh of every visible card, global_stats, and -mesh beyond them; the
 fill counters against the buckets of an engine run and against
 Hirschberg's fill launches; ANW scores of 16 kbp pairs on the band
-wavefront against the benchmark's plain reference, with B2's counters.
+wavefront against the benchmark's plain reference, with B2's counters;
+LSW's local best at 16 kbp (planted in bands 0-127, tied across bands and
+inside a row) and HiFi-like LSW pairs through the engine, end cells
+against that reference, with the kernel's count of its scores step's
+cells.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
-The module imports only the port (and, inside one test, the benchmark's
-plain PyTorch reference).  The card's machine has no JAX, and
+The module imports only the port (and, inside some tests, the
+benchmark's plain PyTorch reference).  The card's machine has no JAX, and
 tests/conftest.py imports it, so run these there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1216,19 +1220,26 @@ def test_auto_puts_few_long_pairs_on_the_band_wavefront(cuda_device):
     assert counts["rowscan_fill"] == 0
 
 
+def _benchmark_reference():
+    """benchmarks/reference.py, the benchmark's plain PyTorch reference,
+    imported inside the tests that compare with it."""
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from benchmarks import reference
+
+    return reference
+
+
 def test_anw_long_pairs_on_the_band_wavefront(cuda_device):
     """The card twin of tests/test_torch_anw_long.py: ANW, scores only,
     kernel="auto", 8 HiFi-like pairs of 16,384 bp go to the band
     wavefront alone, and each score is the benchmark's plain reference's
     (benchmarks/reference.py, on the card).  The B2 counters count each
     launch with its persistent warps."""
-    import sys
-
     from tpu_align_torch.runtime.engine import AlignmentEngine
 
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    from benchmarks import reference
-
+    reference = _benchmark_reference()
     params = AlignmentParams(match=3, mismatch=-1, gap_open=-4,
                              gap_extend=-1)
     ds = synthetic_dataset(8, uniform_len=16_384, seed=19, sub_rate=0.004,
@@ -1260,6 +1271,174 @@ def test_anw_long_pairs_on_the_band_wavefront(cuda_device):
                    band=16)
     want = reference.scores("anw", scoring, pairs, "cuda")
     np.testing.assert_array_equal(scores, want)
+
+
+# (reference length, query length, plants, reference copies) of
+# utils/synthetic.py planted_local_pair at the published length, 128
+# bands of 128 rows: the best in band 0, band 40, band 100 (a query of
+# 16,421 rows, a partial bottom band below it), tied across bands 30 and
+# 90 (one reference window ends both rows), tied inside row 8,000 (the
+# window twice in the reference), and in a partial bottom band
+LSW_LONG_PLANTS = [
+    (16_384, 16_384, [(100, 9000, 100)], ()),
+    (16_384, 16_384, [(40 * 128 + 64, 12_000, 3000)], ()),
+    (16_384, 16_421, [(100 * 128 + 5, 14_000, 5000)], ()),
+    (16_384, 16_384, [(30 * 128 + 100, 8000, 2000),
+                      (90 * 128 + 17, 8000, 2000)], ()),
+    (16_384, 16_384, [(8000, 5000, 3000)], ((5000, 15_000, 3000),)),
+    (16_384, 16_300, [(16_290, 16_384, 4000)], ()),
+]
+LSW_SCORING = dict(match=3, mismatch=-1, gap=-2, gap_open=-4, gap_extend=-1,
+                   band=16)
+
+
+def _lsw_long_pairs():
+    from tpu_align_torch.utils.synthetic import planted_local_pair
+
+    return [planted_local_pair(r, q, p, seed=90 + k, ref_copies=c)
+            for k, (r, q, p, c) in enumerate(LSW_LONG_PLANTS)]
+
+
+def _end_cells(filled, n):
+    return [tuple(int(x) for x in cell) for cell in
+            zip(*(filled[k][:n].tolist() for k in range(3)))]
+
+
+def test_lsw_local_best_at_the_published_length(cuda_device):
+    """LSW scores at 16,384 x ~16,384 bp, one B2 launch in the wrapper's
+    own band size (128 rows: LSW has no 8-row build), so the best crosses
+    up to 128 bands through the (bands, B, 3) scratch: score, srow and scol
+    bit for bit the benchmark's plain reference's on the card, for bests
+    planted in bands 0, 40 and 100, tied across bands 30 and 90 (the first
+    band wins) and inside a row (the first column wins), and in a partial
+    bottom band.  The kernel's own count of the scores step's cells
+    (fill_band_scores_cells) is every full band's cells: the bucket holds
+    bases alone."""
+    reference = _benchmark_reference()
+    pairs = _lsw_long_pairs()
+    filled = reference.fill("lsw", LSW_SCORING,
+                            *reference.tokens(pairs, "cuda"),
+                            with_dirs=False)
+    want = _end_cells([filled[k] for k in ("score", "srow", "scol")],
+                      len(pairs))
+    bands = [(srow - 1) // 128 for _, srow, _ in want]
+    assert bands == [0, 40, 100, 30, 62, 127]
+    # the ties are ties: past the first cell's plant, the later cell
+    # scores the best too
+    (ref, qry), (ref2, qry2) = pairs[3], pairs[4]
+    cut = reference.fill("lsw", LSW_SCORING, *reference.tokens(
+        [(ref, qry[4000:90 * 128 + 17]), (ref2[5000:], qry2[:8000])],
+        "cuda"), with_dirs=False)
+    assert _end_cells([cut[k] for k in ("score", "srow", "scol")], 2) == [
+        (want[3][0], 90 * 128 + 17 - 4000, 8000),
+        (want[4][0], 8000, 10_000)]
+    b, t = _offset_tensors(pairs, cuda_device)
+    params = AlignmentParams(**{k: LSW_SCORING[k]
+                                for k in ("match", "mismatch", "gap")})
+    reset_launch_counts()
+    before = rs.launches
+    got = rs.fill_bucket_async(Algorithm.LSW, params, *t,
+                               with_traceback=False)
+    assert rs.launches == before + 1
+    assert rs.launch_band_rows == 128 and rs.launch_scores_step
+    torch.cuda.synchronize()
+    assert _end_cells(got, b.num_real) == want
+    rlen = t[2][:b.num_real].cpu().numpy()
+    qlen = t[3][:b.num_real].cpu().numpy()
+    full = full_band_cells(rlen, qlen, 128)
+    assert launch_counts()["fill_band_scores_cells"] == full
+    # the plain version agrees, and adds nothing to the count
+    plain = rs.fill_rowscan_reference(Algorithm.LSW, params, *t,
+                                      with_traceback=False)
+    assert _end_cells(plain, b.num_real) == want
+    assert launch_counts()["fill_band_scores_cells"] == full
+
+
+def test_scores_step_cells_count_none_where_every_band_holds_an_n(
+        cuda_device):
+    """The kernel counts only the band items that take the scores step: a
+    bucket whose every band holds an N takes the general step throughout
+    and counts 0, with its end cells the reference's still; the same
+    bucket of bases alone counts every full band's cells, launch after
+    launch, and reset_launch_counts zeroes the count."""
+    reference = _benchmark_reference()
+    pairs = []
+    for ref, qry in _lsw_long_pairs()[:3]:
+        q = bytearray(qry)
+        q[64::128] = b"N" * len(q[64::128])  # row 65 of every band
+        pairs.append((ref, bytes(q)))
+    filled = reference.fill("lsw", LSW_SCORING,
+                            *reference.tokens(pairs, "cuda"),
+                            with_dirs=False)
+    want = _end_cells([filled[k] for k in ("score", "srow", "scol")],
+                      len(pairs))
+    params = AlignmentParams()
+    b, t = _offset_tensors(pairs, cuda_device)
+    reset_launch_counts()
+    got = rs.fill_bucket_async(Algorithm.LSW, params, *t,
+                               with_traceback=False)
+    torch.cuda.synchronize()
+    assert _end_cells(got, b.num_real) == want
+    assert launch_counts()["fill_band_scores_cells"] == 0
+    b, t = _offset_tensors(_lsw_long_pairs()[:3], cuda_device)
+    rlen = t[2][:b.num_real].cpu().numpy()
+    qlen = t[3][:b.num_real].cpu().numpy()
+    full = 0
+    for algo in (Algorithm.LSW, Algorithm.LNW, Algorithm.ANW):
+        rs.fill_bucket_async(algo, params, *t, with_traceback=False)
+        assert rs.launch_scores_step
+        full += full_band_cells(rlen, qlen, rs.launch_band_rows)
+    assert launch_counts()["fill_band_scores_cells"] == full > 0
+    reset_launch_counts()
+    assert launch_counts()["fill_band_scores_cells"] == 0
+
+
+def test_lsw_long_pairs_on_the_band_wavefront(cuda_device):
+    """The card twin of tests/test_torch_lsw_long.py: LSW, scores only,
+    kernel="auto", 8 HiFi-like pairs of 16,384 bp go to the band
+    wavefront alone, each score is the benchmark's plain reference's, and
+    through the fill the engine gives each bucket (fill_sharded) so is
+    each end cell; the kernel counted the scores step's cells, every full
+    band's, which hold over 99 % of the cells."""
+    from tpu_align_torch.distributed import fill_sharded
+    from tpu_align_torch.runtime.engine import AlignmentEngine
+
+    reference = _benchmark_reference()
+    params = AlignmentParams(match=3, mismatch=-1, gap=-2)
+    ds = synthetic_dataset(8, uniform_len=16_384, seed=24, sub_rate=0.004,
+                           indel_rate=0.003)
+    engine = AlignmentEngine(Algorithm.LSW, params, device="cuda",
+                             with_traceback=False, output="blocks")
+    buckets = engine._buckets_of(ds)
+    engine.warmup(ds)
+    reset_launch_counts()
+    scores = engine.run(ds).scores()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["rowscan_fill"] == counts["fill_band_counted"] == \
+        len(buckets) > 0
+    assert counts["stagger_fill"] == 0
+    full = sum(full_band_cells(b.ref_len[:b.num_real], b.qry_len[:b.num_real],
+                               128) for b in buckets)
+    assert counts["fill_band_scores_cells"] == full
+    assert full > 0.99 * counts["fill_cells"]
+    pairs = [(ds.reference_bytes(i).tobytes(), ds.query_bytes(i).tobytes())
+             for i in range(len(ds))]
+    filled = reference.fill("lsw", LSW_SCORING,
+                            *reference.tokens(pairs, "cuda"),
+                            with_dirs=False)
+    want = _end_cells([filled[k] for k in ("score", "srow", "scol")],
+                      len(pairs))
+    np.testing.assert_array_equal(scores, [w[0] for w in want])
+    got = {}
+    for b in buckets:
+        outs = fill_sharded(engine.mesh, Algorithm.LSW, params,
+                            b.ref_tokens, b.qry_tokens, b.ref_len,
+                            b.qry_len, with_traceback=False, kernel="auto")
+        cells = _end_cells([torch.cat(o).cpu() for o in outs[:3]],
+                           b.num_real)
+        got.update(zip(b.pair_ids[:b.num_real].tolist(), cells))
+    assert [got[i] for i in range(len(pairs))] == want
 
 
 def test_cuda_engine_gathers_buckets_into_pinned_memory(cuda_device):

@@ -443,3 +443,41 @@ def test_plain_versions_count_no_launch(ds):
     counts = profiler.launch_counts()
     del counts["stream"]  # finalized walks, launched or not
     assert all(v == 0 for v in counts.values()), counts
+
+
+def test_scores_step_cells_are_counted_by_the_kernel_alone(monkeypatch):
+    """fill_band_scores_cells is in launch_counts(): the sum of each
+    device's count as the band wavefront's kernel leaves it, read once
+    (after a synchronise of that device), and zeroed by
+    reset_launch_counts; a run of the plain versions, which never count,
+    leaves it 0, though LSW's scores-only buckets take the "rowscan"
+    fill."""
+    import torch
+
+    from tpu_align_torch.kernels import fill
+
+    profiler.reset_launch_counts()
+    assert profiler.launch_counts()["fill_band_scores_cells"] == 0
+    pairs = _pairs(12, 6, 300, 400)
+    engine = AlignmentEngine(Algorithm.LSW, PARAMS, bucket_spec=SPEC,
+                             device="cpu", output="blocks",
+                             with_traceback=False, kernel="rowscan")
+    calls = []
+    real = fill.fill_bucket_async
+    monkeypatch.setattr(fill, "fill_bucket_async",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    engine.run(PairDataset.from_pairs(pairs))
+    assert calls
+    assert profiler.launch_counts()["fill_band_scores_cells"] == 0
+    # two devices' counts as a launch leaves them
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    counters = {torch.device("cuda", 0): torch.tensor([128 * 16_384]),
+                torch.device("cuda", 1): torch.tensor([5])}
+    monkeypatch.setattr(fill, "_scores_cells", counters)
+    assert profiler.launch_counts()["fill_band_scores_cells"] == \
+        128 * 16_384 + 5
+    assert synced == list(counters)
+    profiler.reset_launch_counts()
+    assert all(int(c) == 0 for c in counters.values())
+    assert profiler.launch_counts()["fill_band_scores_cells"] == 0

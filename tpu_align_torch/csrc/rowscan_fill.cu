@@ -113,24 +113,27 @@
 //     visible.
 //   - BSW keeps two values a row: the unmasked H of the row recurrence and
 //     the masked H that flows down and into the best.
-//   - Scores only, a step of its own (fill_band_scores) for every band
-//     whose rows are all live (all but a partial bottom band) and hold only
-//     A, C, G and T, where match and mismatch fit a byte; every other band
-//     takes the general step (fill_band).  A band's sweep is peeled into a
-//     ramp-in chunk (some lane still at j < 1), steady chunks (every lane's
-//     column in [1, rlen]) and the ramp-out (some lane past rlen): only the
-//     ramps test the border and rlen.  Rows are never dead, so the writer
-//     is the last lane and its store and publication are constants of the
-//     chunk.  Each lane packs, once a band, a substitution profile of its
+//   - Scores only, a step of its own (fill_band_scores) for every band whose
+//     rows are all live (all but a partial bottom band) and hold only A, C, G
+//     and T, where match and mismatch fit a byte; every other band takes the
+//     general step (fill_band).  At the end of a band that took it, lane 0
+//     adds the band's real cells (its rows x rlen) to a 64-bit counter the
+//     caller may pass: one atomic an item, none in the sweep
+//     (runtime/profiler.py fill_band_scores_cells).  A band's sweep is peeled
+//     into a ramp-in chunk (some lane still at j < 1), steady chunks (every
+//     lane's column in [1, rlen]) and the ramp-out (some lane past rlen):
+//     only the ramps test the border and rlen.  Rows are never dead, so the
+//     writer is the last lane and its store and publication are constants of
+//     the chunk.  Each lane packs, once a band, a substitution profile of its
 //     rows: a word a row, byte c the score of base code c (A, C, T, G as
-//     (code >> 1) & 3) against the row's base; a reference code becomes,
-//     once a chunk, a prmt selector of its byte, sign-extended, or of the
-//     mismatch word for any code other than A, C, G and T, so a row's
-//     score is one prmt, equal to the compare of codes it replaces.  The
-//     selectors of the chunk and of the one before, and the incoming row
-//     (H, F), go through a per-warp shared-memory stage, two chunks deep,
-//     written one chunk ahead: a lane reads its column's selector and lane
-//     0 its incoming H where the general step shuffles and selects.
+//     (code >> 1) & 3) against the row's base; a reference code becomes, once
+//     a chunk, a prmt selector of its byte, sign-extended, or of the mismatch
+//     word for any code other than A, C, G and T, so a row's score is one
+//     prmt, equal to the compare of codes it replaces.  The selectors of the
+//     chunk and of the one before, and the incoming row (H, F), go through a
+//     per-warp shared-memory stage, two chunks deep, written one chunk ahead:
+//     a lane reads its column's selector and lane 0 its incoming H where the
+//     general step shuffles and selects.
 //   - LNW's scores step runs in the gap-offset form: lanes hold H'[i][j] =
 //     H[i][j] - gap*(i + j), for which H' = max(H'[i-1][j-1] + w - 2*gap,
 //     H'[i-1][j], H'[i][j-1]) with borders H'[i][0] = H'[0][j] = 0, the
@@ -316,6 +319,9 @@ struct Args {
   int32_t* hbuf;            // (B, 2, N): a band's bottom row H, 2 slots
   int32_t* fbuf;            // (B, 2, N): its F (ANW)
   int32_t* bests;           // (bands, B, 3): a band's best cell (LSW, BSW)
+  // real cells of the band items that took the scores step, added to (may
+  // be null)
+  unsigned long long* scores_cells;
   int32_t* score;           // (B,)
   int32_t* srow;            // (B,) (scores and dirs modes)
   int32_t* scol;            // (B,)
@@ -932,6 +938,13 @@ __device__ __forceinline__ void fill_band_scores(const Args& a, int b, int k, in
     a.srow[b] = ql_in;
     a.scol[b] = rl_in;
   }
+  // the band's cells into the caller's count, after the sweep: placed
+  // here, it leaves every instantiation's registers as they were without
+  // it (in fill_items, before the call, LSW's went 80 -> 72 and its step
+  // ran 1.4 % slower on the H100: PERF.md section 6)
+  if (lane == 0 && a.scores_cells != nullptr) {
+    atomicAdd(a.scores_cells, static_cast<unsigned long long>(kBand) * rl);
+  }
 }
 
 // The persistent warps' loop: take (band, problem) tickets until none is
@@ -1080,15 +1093,18 @@ extern "C" int ta_torch_rowscan_resident_warps(int algo, int mode,
 // for LNW's and ANW's scores mode (kernels/fill.py band_rows picks).
 // open_top (B,) may be null (ANW: gap_open).  scratch holds
 // ta_torch_rowscan_scratch_words(algo, mode, B, N, M, band_rows) int32
-// words.  warps, a host int (may be null), receives the persistent warps
-// launched (0 where nothing is launched); reading it needs no device sync.
+// words.  scores_cells, a device uint64 (may be null), gains each band
+// item's real cells (band rows x rlen) where the item takes the scores
+// step, one atomic add an item; the caller zeroes it.  warps, a host int
+// (may be null), receives the persistent warps launched (0 where nothing
+// is launched); reading it needs no device sync.
 extern "C" int ta_torch_rowscan_fill(
     int algo, int mode, int band_rows, const void* ref, const void* qry,
     const void* ref_len, const void* qry_len, const void* open_top, int B,
     int N, int M, int match, int mismatch, int gap, int gap_open,
     int gap_extend, int band, void* scratch, void* score, void* srow,
-    void* scol, void* dirs, void* hlast, void* flast, void* stream,
-    int* warps) {
+    void* scol, void* dirs, void* hlast, void* flast, void* scores_cells,
+    void* stream, int* warps) {
   if (warps != nullptr) *warps = 0;
   if (B <= 0) return static_cast<int>(cudaGetLastError());
   const bool local = algo == kLSW || algo == kBSW;
@@ -1114,7 +1130,9 @@ extern "C" int ta_torch_rowscan_fill(
                static_cast<const int32_t*>(open_top),
                B, N, M, match, mismatch, gap, gap_open, gap_extend, band,
                bands, packed, reinterpret_cast<unsigned*>(w), w + kHead,
-               hbuf, fbuf, bests, static_cast<int32_t*>(score),
+               hbuf, fbuf, bests,
+               static_cast<unsigned long long*>(scores_cells),
+               static_cast<int32_t*>(score),
                static_cast<int32_t*>(srow), static_cast<int32_t*>(scol),
                static_cast<uint32_t*>(dirs), static_cast<int32_t*>(hlast),
                static_cast<int32_t*>(flast)};

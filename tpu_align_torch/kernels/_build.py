@@ -134,6 +134,7 @@ def _configure(lib: ctypes.CDLL) -> None:
             ptr,                         # scratch
             ptr, ptr, ptr,               # score, srow, scol
             ptr, ptr, ptr,               # dirs, hlast, flast
+            ptr,                         # scores_cells: a device uint64
             ptr,                         # stream
             ctypes.POINTER(i32),         # warps: the launch's persistent warps
         ],

@@ -32,7 +32,10 @@ The kernel is a band wavefront, a warp a band of `band_rows` query rows:
 the launch's band size, chosen here and passed to the entry point, which
 refuses one it was not built for; `launch_band_rows`,
 `launch_scores_step` and `launch_offset_form` keep the last launch's, for
-the counters (runtime/profiler.py count_fill).
+the counters (runtime/profiler.py count_fill).  The kernel itself counts
+the real cells of the band items that take its scores step, into a 64-bit
+word a device that this module owns (`scores_cells`,
+`reset_scores_cells`): one atomic add a band item, read only when asked.
 Unlike the JAX wrapper, B is not padded to 128 lanes, so callers compare
 real rows.
 """
@@ -69,6 +72,9 @@ launch_band_rows = 128  # query rows a band of the last launch
 # whether that step ran in the gap-offset form (LNW's)
 launch_scores_step = False
 launch_offset_form = False
+# a device's int64 count of the cells of band items that took the scores
+# step (csrc/rowscan_fill.cu fill_band_scores), made at its first launch
+_scores_cells: dict[torch.device, torch.Tensor] = {}
 
 # Query rows a band of the wavefront (32 lanes' rows): BAND_ROWS (4 a
 # lane) in every mode, or WIDE_BAND_ROWS (8 a lane) for a scores-only
@@ -106,6 +112,31 @@ def _resident_warps(device: torch.device, algorithm: Algorithm, mode: int,
     with torch.cuda.device(device):
         return _build.library().ta_torch_rowscan_resident_warps(
             _ALGO_CODE[algorithm], mode, rows)
+
+
+def _scores_counter(device: torch.device) -> torch.Tensor:
+    counter = _scores_cells.get(device)
+    if counter is None:
+        counter = _scores_cells[device] = torch.zeros(
+            1, dtype=torch.int64, device=device)
+    return counter
+
+
+def reset_scores_cells() -> None:
+    """Zero every device's scores-step cell count, in stream order."""
+    for counter in _scores_cells.values():
+        counter.zero_()
+
+
+def scores_cells() -> int:
+    """The real cells of the band items that took the scores step since
+    the last reset, summed over the devices: each device is synchronised
+    and its count read once (0 where no kernel was launched)."""
+    total = 0
+    for device, counter in _scores_cells.items():
+        torch.cuda.synchronize(device)
+        total += int(counter.item())
+    return total
 
 
 def bands_of(m: int, rows: int) -> int:
@@ -414,6 +445,7 @@ def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
         words = lib.ta_torch_rowscan_scratch_words(
             _ALGO_CODE[algorithm], mode, b, n, m, rows)
         scratch = torch.empty(words, dtype=i32, device=dev)
+        counter = _scores_counter(dev)
         warps = ctypes.c_int(0)
         rc = lib.ta_torch_rowscan_fill(
             _ALGO_CODE[algorithm], mode, rows,
@@ -429,6 +461,7 @@ def _launch_kernel(mode, algorithm, params, ref_tokens, qry_tokens, ref_len,
             dirs.data_ptr() if dirs is not None else None,
             hlast.data_ptr() if hlast is not None else None,
             flast.data_ptr() if flast is not None else None,
+            counter.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.byref(warps),
         )

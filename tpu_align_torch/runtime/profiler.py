@@ -17,7 +17,9 @@ launch_counts), which show that a run went through the kernels, what
 each fill launch held (count_fill), and what each launch of the band
 wavefront ran on (count_band: its persistent warps, the cells its
 scores step took in steady chunks, and those its LNW scores step took in
-the gap-offset form).
+the gap-offset form); and one count the band wavefront's kernel keeps on
+the card, fill_band_scores_cells: the real cells of the band items that
+took its scores step, whatever the aligner.
 """
 
 from __future__ import annotations
@@ -311,14 +313,18 @@ def reset_launch_counts() -> None:
     hirschberg.launches = device.stream_finalized = 0
     _fill.update(dict.fromkeys(FILL_KEYS, 0))
     _band.update(dict.fromkeys(BAND_KEYS, 0))
+    fill.reset_scores_cells()
 
 
 def launch_counts() -> dict:
     """The engine-path kernels' launch counts since the last reset, the
     buckets whose device walk was finalized in the stream form, the fill
     counters (FILL_KEYS: the fill launches AlignmentEngine and Hirschberg
-    made, as count_fill counts them) and the band wavefront's (BAND_KEYS,
-    as count_band counts them)."""
+    made, as count_fill counts them), the band wavefront's (BAND_KEYS,
+    as count_band counts them) and fill_band_scores_cells, the cells its
+    kernel counted in its scores step (kernels/fill.py scores_cells: read
+    from each card once, after synchronising it, so call this outside a
+    timed window)."""
     banded, fill, stagger, device, hirschberg, walk_kernel = \
         _counter_modules()
     return {"stagger_fill": stagger.launches, "banded_fill": banded.launches,
@@ -329,4 +335,5 @@ def launch_counts() -> dict:
             "stagger_last_rows": stagger.last_rows_launches,
             "split_reduce": hirschberg.launches,
             "stream": device.stream_finalized,
-            **_fill, **_band}
+            **_fill, **_band,
+            "fill_band_scores_cells": fill.scores_cells()}

@@ -371,3 +371,24 @@ def main_path_bucket(pairs: int = 2048):
 
     return bucketize(synthetic_dataset(2 * pairs, uniform_len=250, seed=42),
                      BucketSpec(batch_pairs=pairs))[0]
+
+
+def planted_local_pair(rlen: int, qlen: int, plants, seed: int,
+                       ref_copies=()) -> tuple[bytes, bytes]:
+    """A (reference, query) pair whose local best is planted: the
+    reference drawn from A and C, the query from G and T (seed), so no
+    base of the query's background matches the reference.  Each (src, dst,
+    length) of ref_copies first copies reference[src - length:src] over
+    reference[dst - length:dst]; each (row, col, length) of plants then
+    copies reference[col - length:col] into query[row - length:row], an
+    exact match of 3 x length at 3/-1/-2 that ends at cell (row, col).  A
+    plant that two rows (or, through a reference copy, two columns) end
+    alike is a tie of the local best."""
+    rng = np.random.default_rng(seed)
+    ref = rng.choice(np.frombuffer(b"AC", np.uint8), rlen)
+    qry = rng.choice(np.frombuffer(b"GT", np.uint8), qlen)
+    for src, dst, length in ref_copies:
+        ref[dst - length:dst] = ref[src - length:src]
+    for row, col, length in plants:
+        qry[row - length:row] = ref[col - length:col]
+    return ref.tobytes(), qry.tobytes()
